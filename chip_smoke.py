@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Run the PyTorch / CUDA port of the REFMLM filter datapath on one CUDA card.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases, each fatal on failure:
+  1. card   -- the device name, and nvidia-smi's name and power limit;
+  2. build  -- nvcc builds every kernel of `src/repro_torch/csrc` for sm_90a;
+  3. parity -- each of the four kernels against its plain PyTorch version on
+               the same CUDA tensors (torch.equal): every bank filter and the
+               paper's Fig. 9 table x six multipliers x two shapes, plus the
+               16-bit signed second pass of the two-pass dataflow;
+  4. main   -- the port's entry points on N=8 480x640 noisy fingerprint
+               frames (the FVC2004 DB1 frame size): the filter bank for every
+               multiplier through the default plans and through 'recurse',
+               REFMLM bytes == exact bytes, a forced two-pass run, the
+               serving batch hook with padding, the port's oracle on a small
+               batch, the paper's Table 10 assertions; every kernel must have
+               been launched;
+  5. scale  -- apply_filter(gaussian5, refmlm) on N=16 2048x2048 frames;
+  6. times  -- each kernel with CUDA events (median of 20 runs after
+               warm-up) beside its plain version, its bound and, where one
+               PyTorch call computes the same sums, that call.
+The line before the last is a JSON object naming the four kernels with their
+numbers; the last line is the run's result and device.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
+INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit integer (non-tensor) peak rate
+METHODS = ("exact", "refmlm", "refmlm_nc", "mitchell", "mitchell_ecc2", "odma")
+MAIN_SHAPE = (8, 480, 640)
+SCALE_SHAPE = (16, 2048, 2048)
+PARITY_SHAPES = ((3, 37, 53), (2, 480, 640))
+SOURCES = {"conv_pass_kcm": "conv_pass.cu", "conv_pass_recurse": "conv_pass.cu",
+           "fused_separable_kcm": "fused_separable.cu",
+           "fused_separable_recurse": "fused_separable.cu"}
+REPLACES = {"conv_pass": "src/repro/filters/conv.py:263",
+            "fused_separable": "src/repro/filters/conv.py:446"}
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def phase_card() -> str:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"[card] {name}")
+    log(smi)
+    return name
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build()
+    log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
+        f"({build.NVCC_FLAGS[1]})")
+    for name, lib in libs.items():
+        log_file = lib.parent / f"{name}.log"
+        for line in log_file.read_text().splitlines() if log_file.exists() else []:
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def noisy_frames(n: int, hw: tuple[int, int], percent: int, seed: int) -> np.ndarray:
+    from repro_torch.data.images import add_salt_pepper, fingerprint
+    return np.stack([add_salt_pepper(fingerprint(hw, seed=seed + i), percent,
+                                     seed=seed + 100 + i)
+                     for i in range(n)]).astype(np.int32)
+
+
+def phase_parity(max_err: dict[str, int]) -> None:
+    """Every kernel against its plain version on the same CUDA tensors."""
+    from repro_torch.filters import conv
+    from repro_torch.filters.bank import FILTER_BANK, max_intermediate
+    from repro_torch.kernels.gaussian_conv import gaussian_kernel_3x3
+
+    direct = [(name, spec.taps, spec.shift, spec.post)
+              for name, spec in FILTER_BANK.items()]
+    direct.append(("fig9", gaussian_kernel_3x3(1.0, 256), 8, "clip"))
+    separable = [(name, spec) for name, spec in FILTER_BANK.items()
+                 if spec.separable]
+    checked = 0
+    failures = []
+
+    def check(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str):
+        nonlocal checked
+        checked += 1
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+            if got.numel() else 0
+        max_err[kernel] = max(max_err[kernel], err)
+        if not torch.equal(got, want):
+            failures.append(f"{kernel} {what}: max |err| {err}")
+
+    for shape in PARITY_SHAPES:
+        x = torch.from_numpy(noisy_frames(shape[0], shape[1:], 20, 1)).cuda()
+        rng = np.random.default_rng(2)
+        signed = torch.from_numpy(
+            rng.integers(-4080, 4081, shape).astype(np.int32)).cuda()
+        for method in METHODS:
+            for name, taps, shift, post in direct:
+                kh, kw = taps.shape
+                rom = conv.rom_stack(method, taps, 8, x.device)
+                kw_ = dict(shift=shift, post=post)
+                check("conv_pass_kcm", conv.conv_pass_kcm(x, rom, kh, kw, **kw_),
+                      conv.conv_pass_kcm_plain(x, rom, kh, kw, **kw_),
+                      f"{name} {method} {shape}")
+                t64 = np.asarray(taps, np.int64)
+                check("conv_pass_recurse",
+                      conv.conv_pass_recurse(x, t64, method=method, nbits=8, **kw_),
+                      conv.conv_pass_recurse_plain(x, t64, method=method,
+                                                   nbits=8, **kw_),
+                      f"{name} {method} {shape}")
+            for name, spec in separable:
+                row = spec.sep_row.astype(np.int64)
+                col = spec.sep_col.astype(np.int64)
+                nb2 = conv.second_pass_nbits(max_intermediate(spec),
+                                             int(np.abs(col).max()))
+                rr = conv.rom_stack(method, row, 8, x.device)
+                cr = conv.rom_stack(method, col, nb2, x.device)
+                kw_ = dict(shift=spec.shift, post=spec.post)
+                check("fused_separable_kcm",
+                      conv.fused_separable_kcm(x, rr, cr, **kw_),
+                      conv.fused_separable_kcm_plain(x, rr, cr, **kw_),
+                      f"{name} {method} {shape}")
+                rk = dict(method=method, nbits=8, nbits2=nb2, **kw_)
+                check("fused_separable_recurse",
+                      conv.fused_separable_recurse(x, row, col, **rk),
+                      conv.fused_separable_recurse_plain(x, row, col, **rk),
+                      f"{name} {method} {shape}")
+                # the two-pass second pass: conv2d_pass at nbits=16 on signed
+                # row-pass-sized inputs
+                colt = col[:, None]
+                for impl in ("kcm", "recurse"):
+                    got = conv.conv2d_pass(signed, colt, method=method, nbits=16,
+                                           shift=spec.shift, post=spec.post,
+                                           mult_impl=impl)
+                    if impl == "kcm":
+                        want = conv.conv_pass_kcm_plain(
+                            signed, conv.rom_stack(method, colt, 16, x.device),
+                            len(col), 1, **kw_)
+                    else:
+                        want = conv.conv_pass_recurse_plain(
+                            signed, colt, method=method, nbits=16, **kw_)
+                    check(f"conv_pass_{impl}", got, want,
+                          f"{name} col nbits=16 signed {method} {shape}")
+        # every ROM placement of the fused kernel (shared or global memory
+        # for each pass): the bank alone uses only 8-bit rows, 16-bit columns
+        small = x % 128                        # row sums over [1, 0, 1] < 256
+        row, col = np.array([1, 0, 1]), np.array([1, 2, 1])
+        for method in METHODS:
+            for nbits, nbits2 in ((8, 8), (16, 8), (16, 16)):
+                rr = conv.rom_stack(method, row, nbits, x.device)
+                cr = conv.rom_stack(method, col, nbits2, x.device)
+                kw_ = dict(shift=4, post="clip")
+                check("fused_separable_kcm",
+                      conv.fused_separable_kcm(small, rr, cr, **kw_),
+                      conv.fused_separable_kcm_plain(small, rr, cr, **kw_),
+                      f"rows {nbits} cols {nbits2} {method} {shape}")
+                rk = dict(method=method, nbits=nbits, nbits2=nbits2, **kw_)
+                check("fused_separable_recurse",
+                      conv.fused_separable_recurse(small, row, col, **rk),
+                      conv.fused_separable_recurse_plain(small, row, col, **rk),
+                      f"rows {nbits} cols {nbits2} {method} {shape}")
+    torch.cuda.synchronize()
+    log(f"[parity] {checked} kernel/plain comparisons, max |err| {max_err}")
+    if failures:
+        raise AssertionError("kernels disagree with their plain versions:\n"
+                             + "\n".join(failures[:20]))
+
+
+def phase_main(device: torch.device) -> tuple[dict[str, int], torch.Tensor]:
+    """The port's main path through its entry points; -> (launches by
+    kernel, the frames as an int32 tensor on the card)."""
+    from repro_torch.data.images import add_salt_pepper, fingerprint, psnr
+    from repro_torch.filters import (FILTER_BANK, FILTER_NAMES, apply_filter,
+                                     apply_filter_batch, filter_bank_apply)
+    from repro_torch.filters import conv
+    from repro_torch.filters.ref import apply_filter_ref
+    from repro_torch.kernels.ops import gaussian_filter, gaussian_kernel_3x3
+
+    frames = noisy_frames(MAIN_SHAPE[0], MAIN_SHAPE[1:], 20, 7)
+    small = torch.from_numpy(noisy_frames(3, (37, 53), 20, 3)).to(device)
+    conv.reset_launches()
+    t0 = time.perf_counter()
+    outs = {}
+    for method in METHODS:
+        outs[method] = filter_bank_apply(frames, method=method)
+        rec = filter_bank_apply(frames, method=method, mult_impl="recurse")
+        for name in FILTER_NAMES:
+            assert outs[method][name].shape == MAIN_SHAPE, name
+            assert outs[method][name].dtype == torch.uint8, name
+            assert torch.equal(rec[name], outs[method][name]), \
+                f"recurse != kcm on {name} {method}"
+    for name in FILTER_NAMES:
+        assert torch.equal(outs["refmlm"][name], outs["exact"][name]), \
+            f"refmlm != exact on {name}"
+    two_pass = filter_bank_apply(
+        frames, [n for n in FILTER_NAMES if FILTER_BANK[n].separable],
+        method="refmlm", fused=False)
+    for name, out in two_pass.items():
+        assert torch.equal(out, outs["refmlm"][name]), f"two_pass != fused {name}"
+    served = apply_filter_batch(list(frames[:3]), "gaussian3", pad_to=4)
+    for i, out in enumerate(served):
+        assert torch.equal(out, outs["refmlm"]["gaussian3"][i]), f"batch hook {i}"
+    for method in ("refmlm", "mitchell", "odma"):
+        for name in FILTER_NAMES:
+            got = apply_filter(small, name, method=method)
+            want = apply_filter_ref(small, name, method=method)
+            assert torch.equal(got, want), f"oracle disagrees: {name} {method}"
+
+    # The paper's Table 10 as benchmarks/table10_psnr.py runs it.
+    base = fingerprint((256, 256), seed=7)
+    kern = gaussian_kernel_3x3(sigma=1.0, scale=256)
+    table = {}
+    for pct in (10, 20, 30, 40):
+        noisy = add_salt_pepper(base, pct, seed=11)
+        for mult in ("exact", "refmlm", "mitchell", "odma", "mitchell_ecc3"):
+            sm = gaussian_filter(noisy.astype(np.int32), kern, method=mult)
+            table[(pct, mult)] = psnr(base, sm.cpu().numpy())
+        assert table[(pct, "refmlm")] == table[(pct, "exact")]
+        assert table[(pct, "refmlm")] >= table[(pct, "mitchell")]
+        assert table[(pct, "refmlm")] >= table[(pct, "odma")]
+        log(f"[main] table10 noise={pct}% psnr_corrupted="
+            f"{psnr(base, noisy):.2f} " + " ".join(
+                f"{m}={table[(pct, m)]:.2f}" for m in
+                ("exact", "refmlm", "mitchell", "odma", "mitchell_ecc3")))
+    torch.cuda.synchronize()
+    launches = dict(conv.LAUNCHES)
+    log(f"[main] {MAIN_SHAPE} bank x {len(METHODS)} methods x (kcm, recurse) + "
+        f"two_pass + batch hook + oracle + Table 10 in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    assert not missing, f"kernels never launched on the main path: {missing}"
+    return launches, torch.from_numpy(frames).to(device)
+
+
+def phase_scale(device: torch.device) -> torch.Tensor:
+    """apply_filter at N=16 x 2048x2048; -> the input frames."""
+    from repro_torch.data.images import fingerprint
+    from repro_torch.filters import apply_filter
+    from repro_torch.filters import conv
+    from repro_torch.filters.bank import get_filter
+
+    n, h, w = SCALE_SHAPE
+    g = torch.Generator(device=device).manual_seed(5)
+    base = torch.from_numpy(fingerprint((h, w), seed=5).astype(np.int32)).to(device)
+    noise = torch.rand((n, h, w), generator=g, device=device)
+    salt = torch.rand((n, h, w), generator=g, device=device) < 0.5
+    x = torch.where(noise < 0.2, torch.where(salt, 255, 0), base).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = apply_filter(x, "gaussian5", method="refmlm")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert out.shape == SCALE_SHAPE and out.dtype == torch.uint8
+    assert torch.equal(out, apply_filter(x, "gaussian5", method="exact"))
+    spec = get_filter("gaussian5")
+    plain = conv.fused_separable_kcm_plain(
+        x[:1], conv.rom_stack("refmlm", spec.sep_row, 8, device),
+        conv.rom_stack("refmlm", spec.sep_col, 16, device), shift=spec.shift,
+        post=spec.post).to(torch.uint8)
+    assert torch.equal(out[:1], plain)
+    log(f"[scale] apply_filter gaussian5 refmlm {SCALE_SHAPE} "
+        f"({x.numel() * 4 / 1e6:.0f} MB int32 in) first call {secs:.3f} s "
+        f"(host clock, with ROM setup); max pixel {int(out.max())}")
+    return x
+
+
+def time_ms(fn, runs: int, warmup: int = 2) -> float:
+    """Median of `runs` CUDA-event-timed calls after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_times(inputs: dict[tuple, torch.Tensor]) -> dict[tuple, dict]:
+    """{(kernel, method, shape): numbers} on the main-path and scale-phase
+    frames. The direct kernels run the Fig. 9 table (Table 10's filter), the
+    fused kernels gaussian3 at the main-path shape and gaussian5 at the
+    scale shape; refmlm for all four, and exact for the recurse kernels too
+    (kcm ROMs of refmlm and exact are the same table)."""
+    import torch.nn.functional as F
+
+    from repro_torch.filters import conv
+    from repro_torch.filters.bank import get_filter
+    from repro_torch.kernels.gaussian_conv import gaussian_kernel_3x3
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    fig9 = gaussian_kernel_3x3(1.0, 256).astype(np.int64)
+    for shape, fused_name in ((MAIN_SHAPE, "gaussian3"), (SCALE_SHAPE, "gaussian5")):
+        x = inputs[shape]
+        device = x.device
+        xf = x.to(torch.float32)[:, None]
+        big = shape == SCALE_SHAPE
+        spec = get_filter(fused_name)
+        row, col = spec.sep_row.astype(np.int64), spec.sep_col.astype(np.int64)
+        rom9 = conv.rom_stack("refmlm", fig9, 8, device)
+        rrom = conv.rom_stack("refmlm", row, 8, device)
+        crom = conv.rom_stack("refmlm", col, 16, device)
+        w9 = torch.from_numpy(fig9.astype(np.float32))[None, None].to(device)
+        wsep = torch.from_numpy(np.outer(col, row).astype(np.float32))[None, None].to(device)
+        direct_kw = dict(shift=8, post="clip")
+        sep_kw = dict(shift=spec.shift, post=spec.post)
+        lib_direct = lambda: F.conv2d(xf, w9, padding=1)
+        lib_sep = lambda: F.conv2d(xf, wsep, padding=(col.size // 2, row.size // 2))
+        cases = [
+            ("conv_pass_kcm", "refmlm",
+             lambda: conv.conv_pass_kcm(x, rom9, 3, 3, **direct_kw),
+             lambda: conv.conv_pass_kcm_plain(x, rom9, 3, 3, **direct_kw),
+             rom9.numel() * 4, 9, lib_direct),
+            ("fused_separable_kcm", "refmlm",
+             lambda: conv.fused_separable_kcm(x, rrom, crom, **sep_kw),
+             lambda: conv.fused_separable_kcm_plain(x, rrom, crom, **sep_kw),
+             (rrom.numel() + crom.numel()) * 4, row.size + col.size, lib_sep),
+        ]
+        for method in ("refmlm", "exact"):
+            rk = dict(method=method, nbits=8, **direct_kw)
+            fk = dict(method=method, nbits=8, nbits2=16, **sep_kw)
+            cases += [
+                ("conv_pass_recurse", method,
+                 lambda rk=rk: conv.conv_pass_recurse(x, fig9, **rk),
+                 lambda rk=rk: conv.conv_pass_recurse_plain(x, fig9, **rk),
+                 fig9.size * 4, 9, lib_direct),
+                ("fused_separable_recurse", method,
+                 lambda fk=fk: conv.fused_separable_recurse(x, row, col, **fk),
+                 lambda fk=fk: conv.fused_separable_recurse_plain(x, row, col, **fk),
+                 (row.size + col.size) * 4, row.size + col.size, lib_sep),
+            ]
+        for name, method, kernel, plain, coef_bytes, taps, library in cases:
+            pixels = x.numel()
+            nbytes = pixels * 4 * 2 + coef_bytes     # int32 in + int32 out
+            ops = 2 * taps * pixels                  # a multiply and an add per tap
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / INT32_OPS_PER_S * 1e3
+            plain_runs = 1 if big and "recurse" in name else (3 if big else 5)
+            row_ = {
+                "kernel": name, "shape": list(shape),
+                "filter": "fig9" if name.startswith("conv") else fused_name,
+                "method": method,
+                "kernel_ms": time_ms(kernel, 20),
+                "plain_ms": time_ms(plain, plain_runs, warmup=1),
+                "plain_runs": plain_runs,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": time_ms(library, 20),
+                "library": "torch.nn.functional.conv2d float32, TF32 off "
+                           "(the same integer sums, all below 2**24)",
+            }
+            results[(name, method, tuple(shape))] = row_
+            log(json.dumps(row_))
+        del xf
+        torch.cuda.empty_cache()
+    return results
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401 -- fails here when run without the repository
+    device = torch.device("cuda")
+    kind = phase_card()
+    phase_build()
+    from repro_torch.filters.conv import KERNELS
+    max_err = dict.fromkeys(KERNELS, 0)
+    phase_parity(max_err)
+    launches, main_frames = phase_main(device)
+    scale_frames = phase_scale(device)
+    times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames})
+    kernels = []
+    for name in KERNELS:
+        t = times[(name, "refmlm", MAIN_SHAPE)]
+        source = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": REPLACES[source.removesuffix(".cu")],
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

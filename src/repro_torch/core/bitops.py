@@ -1,0 +1,37 @@
+"""Element-wise integer bit operations used by the logarithmic multipliers.
+
+Counterpart of `repro.core.bitops`. The port carries every multiplier
+operand and product in int64: the reference's 16-bit widths use uint32
+lanes, and torch has no uint32 add, shift or compare on the CPU. Operands
+are non-negative values below 2**nbits, nbits <= 16.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def leading_one_position(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) per element by a branch-free binary search (the
+    paper's leading-one detector); 0 for x == 0, as in the reference."""
+    x = x.to(torch.int64)
+    k = torch.zeros_like(x)
+    for shift in (16, 8, 4, 2, 1):
+        gt = x >= (1 << shift)
+        k = k + gt * shift
+        x = torch.where(gt, x >> shift, x)
+    return k
+
+
+def bit_width_mask(nbits: int) -> int:
+    return (1 << nbits) - 1
+
+
+def split_halves(x: torch.Tensor, nbits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) nbits/2-bit halves of an nbits operand (paper Table 2)."""
+    if nbits % 2:
+        raise ValueError(f"radix-2 decomposition needs even width, got {nbits}")
+    half = nbits // 2
+    return (x >> half) & bit_width_mask(half), x & bit_width_mask(half)
+
+
+__all__ = ["bit_width_mask", "leading_one_position", "split_halves"]

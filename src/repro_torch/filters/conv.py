@@ -1,0 +1,423 @@
+"""Batched multiplier-selectable 2-D convolution passes of the integer
+filter datapath.
+
+Counterpart of `repro.filters.conv`. Two passes, each a hand-written CUDA
+kernel for Hopper in two tap-product variants, with a plain PyTorch version
+of the same pass beside it:
+
+  * `conv2d_pass` -- one direct pass over a (kh, kw) tap table
+    (`csrc/conv_pass.cu`: `conv_pass_kcm`, `conv_pass_recurse`);
+  * `fused_separable_pass` -- the (1, kw) row pass at `nbits` and the
+    (kh, 1) column pass at `nbits2` in one kernel, the row-pass band held in
+    shared memory (`csrc/fused_separable.cu`: `fused_separable_kcm`,
+    `fused_separable_recurse`).
+
+Per pixel: sum over taps of sgn(t) * sgn(c) * mult(|t|, |c|), zero padding,
+a wrapping int32 sum, then `apply_post` (a rounding shift, then clip to
+0..255, abs, or the raw sum). `mult_impl` picks how products are formed:
+'kcm' gathers from per-tap product ROMs computed by the selected
+multiplier (`repro_torch.core.kcm`, sign baked in), 'recurse' evaluates
+the multiplier per tap, 'auto' is 'kcm' (coefficients are always concrete
+host values here). Both give the same bytes.
+
+A kernel wrapper launches its kernel for a CUDA tensor, and raises if the
+launch fails; it runs the plain version only for a CPU tensor. Each launch
+adds one to `LAUNCHES[<kernel name>]`. The reference's TPU grid arguments
+(block_rows, block_cols, batch_fold) have no counterpart: each kernel's
+tile shape is a constant of its source.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import itertools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.kcm import (
+    METHODS,
+    filter_tables,
+    parse_method,
+    tables_acc_bound,
+    tap_multiplier,
+)
+from repro_torch.core.mitchell import MAX_NBITS, wrap_int32
+from repro_torch.core.refmlm import SUPPORTED_WIDTHS
+from repro_torch.kernels.build import load_library
+
+MULT_IMPLS = ("recurse", "kcm", "auto")
+POSTS = ("none", "clip", "abs")              # index = the kernels' post code
+KERNELS = ("conv_pass_kcm", "conv_pass_recurse", "fused_separable_kcm",
+           "fused_separable_recurse")
+MAX_K = 15                                   # kMaxK in csrc/multipliers.cuh
+_TILE_H = 16                                 # kTileH of both kernels
+_METHOD_CODES = {"exact": 0, "refmlm": 1, "refmlm_nc": 2, "mitchell": 3,
+                 "mitchell_ecc": 4, "odma": 5}
+# Pixels per chunk of the plain recurse pass: bounds its digit-plane
+# temporaries (64 int64 planes per pixel for 16-bit REFMLM).
+_PLAIN_CHUNK_PIXELS = 1 << 22
+
+#: kernel name -> number of launches since the last `reset_launches()`.
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------ plain versions
+
+def apply_post(acc: torch.Tensor, *, post: str, shift: int) -> torch.Tensor:
+    """Fixed-point epilogue on the int32 sum: rounding shift, then clip /
+    abs / raw. The add wraps like int32 and the shift is arithmetic."""
+    _check_post(post)
+    if post == "none":
+        return acc
+    if post == "abs":
+        acc = wrap_int32(acc.to(torch.int64).abs())
+    if shift > 0:
+        acc = wrap_int32(acc.to(torch.int64) + (1 << (shift - 1))) >> shift
+    return acc.clamp(0, 255)
+
+
+def _tap_views(x: torch.Tensor, kh: int, kw: int):
+    """(tap index, (N, H, W) int64 view) for each tap of the zero-padded
+    batch, taps in row-major order."""
+    n, h, w = x.shape
+    ph, pw = kh // 2, kw // 2
+    padded = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph)).to(torch.int64)
+    for t, (di, dj) in enumerate(itertools.product(range(kh), range(kw))):
+        yield t, padded[:, di:di + h, dj:dj + w]
+
+
+def conv_pass_kcm_plain(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, *,
+                        shift: int, post: str) -> torch.Tensor:
+    """Plain PyTorch version of `conv_pass_kcm`: per tap, sgn(t) *
+    rom[tap][|t|]; operands beyond the ROM add nothing, as in the kernel."""
+    rom_len = rom.shape[1]
+    acc = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    for t, tap in _tap_views(x, kh, kw):
+        mag = tap.abs()
+        prod = rom[t].to(torch.int64)[mag.clamp(max=rom_len - 1)]
+        acc += torch.where(mag < rom_len, torch.sign(tap) * prod, 0)
+    return apply_post(wrap_int32(acc), post=post, shift=shift)
+
+
+def conv_pass_recurse_plain(x: torch.Tensor, taps: np.ndarray, *, method: str,
+                            nbits: int, shift: int, post: str) -> torch.Tensor:
+    """Plain PyTorch version of `conv_pass_recurse`: the selected multiplier
+    on every tap, sgn(c) * sgn(t) * mult(|t|, |c|)."""
+    kh, kw = taps.shape
+    mult = tap_multiplier(method)
+    n, h, w = x.shape
+    out = torch.empty_like(x)
+    step = max(1, _PLAIN_CHUNK_PIXELS // max(1, h * w))
+    for lo in range(0, n, step):
+        part = x[lo:lo + step]
+        acc = torch.zeros(part.shape, dtype=torch.int64, device=x.device)
+        for t, tap in _tap_views(part, kh, kw):
+            c = int(taps.flat[t])
+            if c == 0:                       # sgn(c) == 0: the term is 0
+                continue
+            prod = mult(tap.abs(), torch.tensor(abs(c), device=x.device), nbits)
+            acc += (int(np.sign(c)) * torch.sign(tap)) * prod.to(torch.int64)
+        out[lo:lo + step] = apply_post(wrap_int32(acc), post=post, shift=shift)
+    return out
+
+
+def fused_separable_kcm_plain(x: torch.Tensor, row_rom: torch.Tensor,
+                              col_rom: torch.Tensor, *, shift: int,
+                              post: str) -> torch.Tensor:
+    """Plain PyTorch version of `fused_separable_kcm`: the row pass with
+    post='none', then the column pass."""
+    rows = conv_pass_kcm_plain(x, row_rom, 1, row_rom.shape[0], shift=0,
+                               post="none")
+    return conv_pass_kcm_plain(rows, col_rom, col_rom.shape[0], 1, shift=shift,
+                               post=post)
+
+
+def fused_separable_recurse_plain(x: torch.Tensor, row: np.ndarray,
+                                  col: np.ndarray, *, method: str, nbits: int,
+                                  nbits2: int, shift: int,
+                                  post: str) -> torch.Tensor:
+    """Plain PyTorch version of `fused_separable_recurse`."""
+    rows = conv_pass_recurse_plain(x, row.reshape(1, -1), method=method,
+                                   nbits=nbits, shift=0, post="none")
+    return conv_pass_recurse_plain(rows, col.reshape(-1, 1), method=method,
+                                   nbits=nbits2, shift=shift, post=post)
+
+
+# ----------------------------------------------------------- kernel wrappers
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "conv_pass_kcm": ("conv_pass", [_P, _P, _I, _P] + [_I] * 7 + [_P]),
+    "conv_pass_recurse": ("conv_pass", [_P, _P, _I, _I, _I, _P] + [_I] * 7 + [_P]),
+    "fused_separable_kcm": ("fused_separable",
+                            [_P, _P, _I, _P, _I, _P] + [_I] * 7 + [_P]),
+    "fused_separable_recurse": ("fused_separable",
+                                [_P, _P, _P, _I, _I, _I, _I, _P] + [_I] * 7 + [_P]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str):
+    lib = load_library(_SIGNATURES[name][0])
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name][1]
+    fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return fn, lib
+
+
+def _launch(name: str, x: torch.Tensor, args_for) -> torch.Tensor:
+    """Launch kernel `name` on the current stream of x's device with the C
+    arguments (x, *args_for(out), stream), `out` allocated here; raise if
+    the launch failed. An empty batch launches nothing."""
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn, lib = _kernel_fn(name)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), *args_for(out), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.repro_error_string(err).decode()})")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _host_ints(values: np.ndarray) -> ctypes.Array:
+    flat = np.asarray(values, np.int64).reshape(-1)
+    if flat.size and (flat.min() < -(1 << 31) or flat.max() >= (1 << 31)):
+        raise ValueError("coefficients must fit int32")
+    return (ctypes.c_int32 * flat.size)(*flat.tolist())
+
+
+def _check_x(x: torch.Tensor) -> None:
+    if not isinstance(x, torch.Tensor) or x.dim() != 3 or x.dtype != torch.int32:
+        raise ValueError("expected an (N, H, W) int32 tensor, got "
+                         f"{getattr(x, 'dtype', type(x))} "
+                         f"{tuple(getattr(x, 'shape', ()))}")
+
+
+def _check_cuda(x: torch.Tensor, kh: int, kw: int, *roms: torch.Tensor) -> None:
+    """What the kernels take: contiguous int32 on one CUDA device, taps up
+    to MAX_K, a grid within CUDA's limits."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernels run on CUDA or CPU tensors, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("input must be contiguous")
+    if not (1 <= kh <= MAX_K and 1 <= kw <= MAX_K):
+        raise ValueError(f"taps up to {MAX_K}x{MAX_K}, got {kh}x{kw}")
+    n, h, _ = x.shape
+    if n > 65535 or -(-h // _TILE_H) > 65535:
+        raise ValueError(f"batch {n} or height {h} exceeds the kernel grid")
+    for rom in roms:
+        if (rom.device != x.device or rom.dtype != torch.int32
+                or rom.dim() != 2 or not rom.is_contiguous()):
+            raise ValueError("ROMs must be contiguous 2-D int32 tensors on "
+                             "the input's device")
+
+
+def _check_post(post: str) -> None:
+    if post not in POSTS:
+        raise ValueError(f"unknown post {post!r}; expected one of {POSTS}")
+
+
+def _check_method_width(method: str, nbits: int) -> tuple[int, int]:
+    """-> (kernel method code, num_ecc); raises where the reference's
+    multiplier would reject the width."""
+    family, num_ecc = parse_method(method)
+    if family in ("refmlm", "refmlm_nc") and nbits not in SUPPORTED_WIDTHS:
+        raise ValueError(f"nbits must be one of {SUPPORTED_WIDTHS}, got {nbits}")
+    if family != "exact" and not 2 <= nbits <= MAX_NBITS:
+        raise ValueError(f"nbits must be in [2, {MAX_NBITS}], got {nbits}")
+    return _METHOD_CODES[family], num_ecc
+
+
+def conv_pass_kcm(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, *,
+                  shift: int, post: str) -> torch.Tensor:
+    """Direct pass from a (kh*kw, 2**nbits) int32 ROM stack."""
+    _check_x(x)
+    _check_post(post)
+    if rom.shape[0] != kh * kw:
+        raise ValueError(f"ROM stack has {rom.shape[0]} rows for {kh}x{kw} taps")
+    if x.device.type == "cpu":
+        return conv_pass_kcm_plain(x, rom, kh, kw, shift=shift, post=post)
+    _check_cuda(x, kh, kw, rom)
+    n, h, w = x.shape
+    return _launch("conv_pass_kcm", x, lambda out: (
+        rom.data_ptr(), rom.shape[1], out.data_ptr(), n, h, w, kh, kw, shift,
+        POSTS.index(post)))
+
+
+def conv_pass_recurse(x: torch.Tensor, taps: np.ndarray, *, method: str,
+                      nbits: int, shift: int, post: str) -> torch.Tensor:
+    """Direct pass with the multiplier evaluated per tap."""
+    _check_x(x)
+    _check_post(post)
+    code, num_ecc = _check_method_width(method, nbits)
+    if x.device.type == "cpu":
+        return conv_pass_recurse_plain(x, taps, method=method, nbits=nbits,
+                                       shift=shift, post=post)
+    kh, kw = taps.shape
+    _check_cuda(x, kh, kw)
+    n, h, w = x.shape
+    coeffs = _host_ints(taps)
+    return _launch("conv_pass_recurse", x, lambda out: (
+        ctypes.cast(coeffs, ctypes.c_void_p), code, num_ecc, nbits,
+        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)))
+
+
+def fused_separable_kcm(x: torch.Tensor, row_rom: torch.Tensor,
+                        col_rom: torch.Tensor, *, shift: int,
+                        post: str) -> torch.Tensor:
+    """Fused separable pass from a (kw, 2**nbits) row ROM stack and a
+    (kh, 2**nbits2) column ROM stack."""
+    _check_x(x)
+    _check_post(post)
+    if x.device.type == "cpu":
+        return fused_separable_kcm_plain(x, row_rom, col_rom, shift=shift,
+                                         post=post)
+    kh, kw = col_rom.shape[0], row_rom.shape[0]
+    _check_cuda(x, kh, kw, row_rom, col_rom)
+    n, h, w = x.shape
+    return _launch("fused_separable_kcm", x, lambda out: (
+        row_rom.data_ptr(), row_rom.shape[1], col_rom.data_ptr(),
+        col_rom.shape[1], out.data_ptr(), n, h, w, kh, kw, shift,
+        POSTS.index(post)))
+
+
+def fused_separable_recurse(x: torch.Tensor, row: np.ndarray, col: np.ndarray,
+                            *, method: str, nbits: int, nbits2: int,
+                            shift: int, post: str) -> torch.Tensor:
+    """Fused separable pass with the multiplier evaluated per tap."""
+    _check_x(x)
+    _check_post(post)
+    code, num_ecc = _check_method_width(method, nbits)
+    _check_method_width(method, nbits2)
+    if x.device.type == "cpu":
+        return fused_separable_recurse_plain(
+            x, row, col, method=method, nbits=nbits, nbits2=nbits2,
+            shift=shift, post=post)
+    kh, kw = col.size, row.size
+    _check_cuda(x, kh, kw)
+    n, h, w = x.shape
+    row_c, col_c = _host_ints(row), _host_ints(col)
+    return _launch("fused_separable_recurse", x, lambda out: (
+        ctypes.cast(row_c, ctypes.c_void_p), ctypes.cast(col_c, ctypes.c_void_p),
+        code, num_ecc, nbits, nbits2, out.data_ptr(), n, h, w, kh, kw, shift,
+        POSTS.index(post)))
+
+
+# ------------------------------------------------------------- public passes
+
+@functools.lru_cache(maxsize=None)
+def _host_tables(method: str, taps_key: tuple, nbits: int):
+    """Stacked KCM ROMs (narrow dtype) + their exact accumulator bound."""
+    stack = filter_tables(method, np.asarray(taps_key, np.int64), nbits)
+    return stack, tables_acc_bound(stack)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(method: str, taps_key: tuple, nbits: int,
+                   device: torch.device) -> torch.Tensor:
+    """The ROM stack as a contiguous int32 tensor on `device`, cached per
+    coefficient table (the kernels read int32 ROMs)."""
+    stack = _host_tables(method, taps_key, nbits)[0]
+    return torch.from_numpy(stack.astype(np.int32)).to(device)
+
+
+def rom_stack(method: str, taps, nbits: int,
+              device: torch.device) -> torch.Tensor:
+    """(taps.size, 2**nbits) int32 KCM ROM stack on `device` for the
+    coefficients `taps` (row-major), as the kcm kernels read it; raises
+    when the accumulator bound exceeds int32, like the reference."""
+    key = (method, tuple(_host_taps(taps).reshape(-1).tolist()), nbits)
+    if _host_tables(*key)[1] >= (1 << 31):
+        raise ValueError(f"accumulator bound {_host_tables(*key)[1]} exceeds "
+                         "the int32 datapath; narrow the taps or nbits")
+    return _device_tables(*key, device)
+
+
+def _resolve_mult_impl(mult_impl: str) -> str:
+    if mult_impl not in MULT_IMPLS:
+        raise ValueError(f"mult_impl must be one of {MULT_IMPLS}, got {mult_impl!r}")
+    return "kcm" if mult_impl == "auto" else mult_impl
+
+
+def _as_batch(imgs: torch.Tensor) -> torch.Tensor:
+    if not isinstance(imgs, torch.Tensor) or imgs.dim() != 3:
+        raise ValueError("expected an (N, H, W) integer tensor, got "
+                         f"{type(imgs).__name__} {tuple(getattr(imgs, 'shape', ()))}")
+    return imgs.to(torch.int32).contiguous()
+
+
+def _host_taps(taps) -> np.ndarray:
+    if isinstance(taps, torch.Tensor):
+        taps = taps.cpu().numpy()
+    return np.asarray(taps, np.int64)
+
+
+def conv2d_pass(imgs: torch.Tensor, taps, *, method: str = "refmlm",
+                nbits: int = 8, shift: int = 8, post: str = "clip",
+                mult_impl: str = "auto") -> torch.Tensor:
+    """One batched convolution pass: (N, H, W) int32 -> (N, H, W) int32 on
+    the input's device. Input may be signed (the separable intermediate);
+    `nbits` must cover the widest |operand| of each tap product."""
+    x = _as_batch(imgs)
+    taps = _host_taps(taps)
+    if taps.ndim != 2:
+        raise ValueError(f"taps must be (kh, kw), got shape {taps.shape}")
+    kh, kw = taps.shape
+    if _resolve_mult_impl(mult_impl) == "kcm":
+        rom = rom_stack(method, taps, nbits, x.device)
+        return conv_pass_kcm(x, rom, kh, kw, shift=shift, post=post)
+    return conv_pass_recurse(x, taps, method=method, nbits=nbits, shift=shift,
+                             post=post)
+
+
+def fused_separable_pass(imgs: torch.Tensor, row, col, *,
+                         method: str = "refmlm", nbits: int = 8,
+                         nbits2: int = 16, shift: int = 8, post: str = "clip",
+                         mult_impl: str = "auto") -> torch.Tensor:
+    """Both separable passes in one kernel: `row` is the (kw,) horizontal
+    filter at width `nbits`, `col` the (kh,) vertical filter at `nbits2`
+    (see `second_pass_nbits`). Bit-identical to `conv2d_pass(row,
+    post='none')` followed by `conv2d_pass(col)`."""
+    x = _as_batch(imgs)
+    row, col = _host_taps(row).reshape(-1), _host_taps(col).reshape(-1)
+    if _resolve_mult_impl(mult_impl) == "kcm":
+        return fused_separable_kcm(
+            x, rom_stack(method, row, nbits, x.device),
+            rom_stack(method, col, nbits2, x.device), shift=shift, post=post)
+    return fused_separable_recurse(x, row, col, method=method, nbits=nbits,
+                                   nbits2=nbits2, shift=shift, post=post)
+
+
+def second_pass_nbits(intermediate_max: int, coeff_max: int) -> int:
+    """Multiplier width for the separable column pass: the narrowest
+    supported width covering both the row-pass accumulator magnitude and the
+    column coefficients (8 for narrow filters, 16 in general)."""
+    need = max(int(intermediate_max), int(coeff_max))
+    for nb in (2, 4, 8, 16):
+        if need < (1 << nb):
+            return nb
+    raise ValueError(
+        f"separable intermediate {need} exceeds the 16-bit REFMLM datapath")
+
+
+__all__ = [
+    "KERNELS", "LAUNCHES", "METHODS", "MULT_IMPLS", "POSTS", "apply_post",
+    "conv2d_pass", "conv_pass_kcm", "conv_pass_kcm_plain", "conv_pass_recurse",
+    "conv_pass_recurse_plain", "fused_separable_kcm",
+    "fused_separable_kcm_plain", "fused_separable_pass",
+    "fused_separable_recurse", "fused_separable_recurse_plain",
+    "reset_launches", "rom_stack", "second_pass_nbits", "tap_multiplier",
+]

@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels (`src/repro_torch/csrc/*.cu`) with nvcc and
+load them with ctypes.
+
+Each source compiles, in parallel with the others, to its own shared
+library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o lib<name>.so <name>.cu
+
+into `build/repro_torch/<digest>/` at the repository root (listed in
+`.gitignore`), where `<digest>` hashes the sources and the flags, so a
+changed source rebuilds and an unchanged one is reused. The build happens
+at first use. With no `nvcc`, or a failed build, it raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+SOURCES = ("conv_pass", "fused_separable")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or DEFAULT_CUDA_HOME."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, DEFAULT_CUDA_HOME); "
+                       "the CUDA kernels cannot be built")
+
+
+def source_digest() -> str:
+    """Hash of every file in csrc/ and of the nvcc flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict[str, Path]:
+    """Compile every source not yet built for this digest, all nvcc
+    processes at once; -> {name: path of lib<name>.so}. The compiler's
+    output (registers, shared memory, spills) is kept in <name>.log."""
+    nvcc = find_nvcc()
+    out_dir = BUILD_ROOT / source_digest()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    jobs = []
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, lib))
+    failed = []
+    for name, proc, tmp, lib in jobs:          # wait for all before raising
+        log = proc.communicate()[0]
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode == 0:
+            os.replace(tmp, lib)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return libs
+
+
+@lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library `lib<name>.so`, building it first if needed."""
+    if name not in SOURCES:
+        raise ValueError(f"unknown kernel library {name!r}; have {SOURCES}")
+    return ctypes.CDLL(str(build()[name]))
+
+
+__all__ = ["BUILD_ROOT", "CSRC", "DEFAULT_CUDA_HOME", "NVCC_FLAGS", "SOURCES", "build",
+           "find_nvcc", "load_library", "source_digest"]
