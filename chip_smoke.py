@@ -1,27 +1,45 @@
 #!/usr/bin/env python3
-"""Run the PyTorch / CUDA port of the REFMLM filter datapath on one CUDA card.
+"""Run the PyTorch / CUDA port of the REFMLM datapaths on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases, each fatal on failure:
   1. card   -- the device name, and nvidia-smi's name and power limit;
   2. build  -- nvcc builds every kernel of `src/repro_torch/csrc` for sm_90a;
-  3. parity -- each of the four kernels against its plain PyTorch version on
-               the same CUDA tensors (torch.equal): every bank filter and the
-               paper's Fig. 9 table x six multipliers x two shapes, plus the
-               16-bit signed second pass of the two-pass dataflow;
-  4. main   -- the port's entry points on N=8 480x640 noisy fingerprint
-               frames (the FVC2004 DB1 frame size): the filter bank for every
-               multiplier through the default plans and through 'recurse',
-               REFMLM bytes == exact bytes, a forced two-pass run, the
-               serving batch hook with padding, the port's oracle on a small
-               batch, the paper's Table 10 assertions; every kernel must have
-               been launched;
-  5. scale  -- apply_filter(gaussian5, refmlm) on N=16 2048x2048 frames;
-  6. times  -- each kernel with CUDA events (median of 20 runs after
-               warm-up) beside its plain version, its bound and, where one
-               PyTorch call computes the same sums, that call.
-The line before the last is a JSON object naming the four kernels with their
+  3. parity -- each of the six kernels against its plain PyTorch version on
+               the same CUDA tensors (torch.equal). The four conv kernels:
+               every bank filter and the paper's Fig. 9 table x six
+               multipliers x two shapes, plus the 16-bit signed second pass
+               of the two-pass dataflow. The two matmul kernels: every
+               (num_ecc, case_split) of `mitchell_matmul` and both
+               `karatsuba_matmul` modes on ragged shapes (quantized-range
+               and full-range int32 operands) and on the full-width shape
+               below with M cut to 256 rows;
+  4. main   -- the filter path: the port's entry points on N=8 480x640
+               noisy fingerprint frames (the FVC2004 DB1 frame size): the
+               filter bank for every multiplier through the default plans
+               and through 'recurse', REFMLM bytes == exact bytes, a forced
+               two-pass run, the serving batch hook with padding, the port's
+               oracle on a small batch, the paper's Table 10 assertions;
+               every conv kernel must have been launched;
+  5. matmul -- the quantized-matmul path at full width: `core.matmul(impl=
+               'auto')` for the six kernel methods and `kernels.ops.
+               lns_matmul` / `limb_matmul` on the Qwen2-0.5B MLP up-projection
+               (d_model 896 -> d_ff 4864, M = 2048 tokens); both matmul
+               kernels must have been launched;
+  6. infer  -- `infer.forward` of cnn and mlp over a 256-image 64x64 batch,
+               calibrated on the card: the Table-10-style report, the §14
+               contract (refmlm, refmlm_kom3, schoolbook_int16 and
+               karatsuba_int16 accumulators byte-equal to the int8 oracle),
+               and the card's bytes equal to the port's CPU path on the first
+               images for every quantized method; both matmul kernels must
+               have been launched;
+  7. scale  -- apply_filter(gaussian5, refmlm) on N=16 2048x2048 frames;
+  8. times  -- each kernel with CUDA events (median after warm-up) beside
+               its plain version, its bound and, where PyTorch has one call
+               that computes the same sums, that call; the matmul kernels at
+               the full-width shape.
+The line before the last is a JSON object naming the six kernels with their
 numbers; the last line is the run's result and device.
 """
 from __future__ import annotations
@@ -40,7 +58,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
-INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit integer (non-tensor) peak rate
+INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core rate
+INT32_LANES = 132 * 64         # SMs x INT32 lanes per SM (Hopper)
 METHODS = ("exact", "refmlm", "refmlm_nc", "mitchell", "mitchell_ecc2", "odma")
 MAIN_SHAPE = (8, 480, 640)
 SCALE_SHAPE = (16, 2048, 2048)
@@ -49,21 +68,43 @@ SOURCES = {"conv_pass_kcm": "conv_pass.cu", "conv_pass_recurse": "conv_pass.cu",
            "fused_separable_kcm": "fused_separable.cu",
            "fused_separable_recurse": "fused_separable.cu"}
 REPLACES = {"conv_pass": "src/repro/filters/conv.py:263",
-            "fused_separable": "src/repro/filters/conv.py:446"}
+            "fused_separable": "src/repro/filters/conv.py:446",
+            "mitchell_matmul": "src/repro/kernels/mitchell_matmul.py:141",
+            "karatsuba_matmul": "src/repro/kernels/karatsuba_matmul.py:122"}
+MATMUL_KERNELS = ("mitchell_matmul", "karatsuba_matmul")
+# The Qwen2-0.5B MLP up-projection (src/repro/configs/qwen2_0_5b.py:
+# d_model 896 -> d_ff 4864) over 2048 tokens.
+MM_SHAPE = (2048, 896, 4864)
+MM_PLAIN_ROWS = 256
+MM_PARITY_SHAPES = ((5, 19, 11), (37, 300, 129))
+LNS_VARIANTS = ((0, True), (1, False), (2, False), (3, False))   # (num_ecc, case_split)
+KERNEL_METHODS = ("mitchell", "mitchell_ecc1", "mitchell_ecc2", "mitchell_ecc3",
+                  "schoolbook_int16", "karatsuba_int16")
+INFER_HW = (64, 64)
+INFER_BATCH = 256
+INFER_CPU_BATCH = 4
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def phase_card() -> str:
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def phase_card() -> tuple[str, float]:
+    """-> (device name, the card's INT32 operation rate: INT32_LANES x its
+    maximum SM clock)."""
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi("name,power.limit")
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"[card] {name}")
     log(smi)
-    return name
+    log(f"[card] max SM clock {mhz} MHz; INT32 rate {INT32_LANES * mhz * 1e6:.6g} ops/s")
+    return name, INT32_LANES * mhz * 1e6
 
 
 def phase_build() -> None:
@@ -302,7 +343,8 @@ def time_ms(fn, runs: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def phase_times(inputs: dict[tuple, torch.Tensor]) -> dict[tuple, dict]:
+def phase_times(inputs: dict[tuple, torch.Tensor],
+                int32_ops_per_s: float) -> dict[tuple, dict]:
     """{(kernel, method, shape): numbers} on the main-path and scale-phase
     frames. The direct kernels run the Fig. 9 table (Table 10's filter), the
     fused kernels gaussian3 at the main-path shape and gaussian5 at the
@@ -314,8 +356,6 @@ def phase_times(inputs: dict[tuple, torch.Tensor]) -> dict[tuple, dict]:
     from repro_torch.filters.bank import get_filter
     from repro_torch.kernels.gaussian_conv import gaussian_kernel_3x3
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     results = {}
     fig9 = gaussian_kernel_3x3(1.0, 256).astype(np.int64)
     for shape, fused_name in ((MAIN_SHAPE, "gaussian3"), (SCALE_SHAPE, "gaussian5")):
@@ -362,7 +402,7 @@ def phase_times(inputs: dict[tuple, torch.Tensor]) -> dict[tuple, dict]:
             nbytes = pixels * 4 * 2 + coef_bytes     # int32 in + int32 out
             ops = 2 * taps * pixels                  # a multiply and an add per tap
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / INT32_OPS_PER_S * 1e3
+            ops_ms = ops / int32_ops_per_s * 1e3
             plain_runs = 1 if big and "recurse" in name else (3 if big else 5)
             row_ = {
                 "kernel": name, "shape": list(shape),
@@ -384,21 +424,282 @@ def phase_times(inputs: dict[tuple, torch.Tensor]) -> dict[tuple, dict]:
     return results
 
 
+def check_equal(max_err: dict, failures: list, kernel: str, got, want,
+                what: str) -> None:
+    """Record |got - want| for `kernel`; a failure unless torch.equal."""
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    max_err[kernel] = max(max_err[kernel], err)
+    if got.shape != want.shape or not torch.equal(got, want):
+        failures.append(f"{kernel} {what}: max |err| {err}")
+
+
+def mm_operands(shape: tuple[int, int, int], lo: int, hi: int, seed: int,
+                device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Seeded int32 operands a (M, K), b (K, N) and limbs a_lo, b_lo in
+    [lo, hi), on the card."""
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(lo, hi, s).astype(np.int32)).to(device)
+                 for s in ((m, k), (k, n), (m, k), (k, n)))
+
+
+def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
+    """Both matmul kernels against their plain versions on the same CUDA
+    tensors: every LNS variant and both limb modes, on ragged shapes with
+    quantized-range and wider operands, and at the full-width shape with M
+    cut to MM_PLAIN_ROWS."""
+    from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import mitchell_matmul as mm
+
+    failures: list[str] = []
+    checked = 0
+    m, k, n = MM_SHAPE
+    cases = [(shape, lo, hi, f"{shape} in [{lo}, {hi})")
+             for shape in MM_PARITY_SHAPES
+             for lo, hi in ((-255, 256), (-(1 << 20), 1 << 20))]
+    cases.append(((MM_PLAIN_ROWS, k, n), -255, 256, f"{(MM_PLAIN_ROWS, k, n)}"))
+    for i, (shape, lo, hi, what) in enumerate(cases):
+        a, b, a_lo, b_lo = mm_operands(shape, lo, hi, 40 + i, device)
+        for num_ecc, split in LNS_VARIANTS:
+            kw = dict(num_ecc=num_ecc, case_split=split)
+            check_equal(max_err, failures, "mitchell_matmul",
+                        mm.mitchell_matmul_kernel(a, b, **kw),
+                        mm.mitchell_matmul_plain(a, b, **kw), f"{kw} {what}")
+            checked += 1
+        for kar in (True, False):
+            got = km.karatsuba_matmul_kernel(a, a_lo, b, b_lo, karatsuba=kar)
+            want = km.karatsuba_matmul_plain(a, a_lo, b, b_lo, karatsuba=kar)
+            for part, g, w in zip(("hh", "mid", "ll"), got, want):
+                check_equal(max_err, failures, "karatsuba_matmul", g, w,
+                            f"karatsuba={kar} {part} {what}")
+            checked += 1
+    # every int32 operand, the edge values included, through the LNS kernel
+    rng = np.random.default_rng(49)
+    for shape in MM_PARITY_SHAPES:
+        sm, sk, sn = shape
+        a = rng.integers(-(1 << 31), 1 << 31, (sm, sk), dtype=np.int64)
+        a[0, :4] = (-(1 << 31), (1 << 31) - 1, 0, 1 << 16)
+        b = rng.integers(-(1 << 31), 1 << 31, (sk, sn), dtype=np.int64)
+        a, b = (torch.from_numpy(v.astype(np.int32)).to(device) for v in (a, b))
+        for num_ecc, split in LNS_VARIANTS + ((2, True),):
+            kw = dict(num_ecc=num_ecc, case_split=split)
+            check_equal(max_err, failures, "mitchell_matmul",
+                        mm.mitchell_matmul_kernel(a, b, **kw),
+                        mm.mitchell_matmul_plain(a, b, **kw),
+                        f"{kw} {shape} full int32 range")
+            checked += 1
+    torch.cuda.synchronize()
+    log(f"[parity] {checked} matmul kernel/plain comparisons, max |err| "
+        f"{ {name: max_err[name] for name in MATMUL_KERNELS} }")
+    if failures:
+        raise AssertionError("matmul kernels disagree with their plain "
+                             "versions:\n" + "\n".join(failures[:20]))
+
+
+def matmul_launches() -> dict[str, int]:
+    from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import mitchell_matmul as mm
+    return {**mm.LAUNCHES, **km.LAUNCHES}
+
+
+def reset_matmul_launches() -> None:
+    from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import mitchell_matmul as mm
+    mm.reset_launches()
+    km.reset_launches()
+
+
+def phase_matmul_main(device: torch.device) -> tuple[dict[str, int], tuple]:
+    """The quantized-matmul path at full width through its entry points;
+    -> (launches by kernel, the float operands on the card)."""
+    from repro_torch.core import matmul
+    from repro_torch.kernels.ops import limb_matmul, lns_matmul
+
+    m, k, n = MM_SHAPE
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(device)
+    w = torch.from_numpy((rng.standard_normal((k, n)) / np.sqrt(k))
+                         .astype(np.float32)).to(device)
+    exact = x @ w
+    scale = float(exact.abs().max())
+    torch.cuda.synchronize()
+    reset_matmul_launches()
+    t0 = time.perf_counter()
+    outs = {method: matmul(x, w, method, impl="auto") for method in KERNEL_METHODS}
+    outs["lns_matmul"] = lns_matmul(x, w, num_ecc=2, case_split=False)
+    outs["limb_matmul"] = limb_matmul(x, w, karatsuba=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = matmul_launches()
+    log(f"[matmul] {MM_SHAPE} x {len(outs)} calls in {secs:.3f} s (host clock, "
+        f"first calls); launches {launches}")
+    errs = {}
+    for name, out in outs.items():
+        assert out.shape == (m, n) and out.dtype == torch.float32, name
+        assert bool(torch.isfinite(out).all()), f"{name}: non-finite output"
+        errs[name] = float((out - exact).abs().max()) / scale
+    assert torch.equal(outs["lns_matmul"], outs["mitchell_ecc2"])
+    assert torch.equal(outs["limb_matmul"], outs["karatsuba_int16"])
+    # Against the reference route: the limb methods at full K (exact integer
+    # sums both ways), the LNS methods at K = 256, where the reference's
+    # float32 sums are exact.
+    rows = slice(0, MM_PLAIN_ROWS)
+    for method in KERNEL_METHODS:
+        kk = k if method.endswith("int16") else 256
+        got = matmul(x[rows, :kk], w[:kk], method, impl="kernel")
+        want = matmul(x[rows, :kk], w[:kk], method, impl="reference")
+        assert torch.equal(got, want), f"{method}: kernel route != reference"
+    log("[matmul] max |out - float32 x @ w| / max|x @ w|: "
+        + " ".join(f"{name}={err:.6g}" for name, err in errs.items()))
+    for name in ("schoolbook_int16", "karatsuba_int16", "limb_matmul"):
+        assert errs[name] < 1e-3, f"{name} drifted from the float product"
+    for name in ("mitchell", "mitchell_ecc1", "mitchell_ecc2", "mitchell_ecc3"):
+        assert errs[name] < 0.25, f"{name} drifted from the float product"
+    missing = [name for name, count in launches.items() if count == 0]
+    assert not missing, f"kernels never launched on the matmul path: {missing}"
+    return launches, (x, w)
+
+
+def phase_infer_main(device: torch.device) -> dict[str, int]:
+    """`infer.forward` on the card for both models; -> launches by kernel."""
+    from repro_torch.data.images import inference_batch
+    from repro_torch.infer import (INFER_METHODS, MODELS, calibrate,
+                                   error_report, export_scales, format_report,
+                                   forward, init_params, with_scales)
+
+    x_cal = inference_batch(4, INFER_HW, seed=100)
+    x = inference_batch(INFER_BATCH, INFER_HW, seed=0)
+    torch.cuda.synchronize()
+    reset_matmul_launches()
+    t0 = time.perf_counter()
+    for model in ("cnn", "mlp"):
+        graph = MODELS[model](INFER_HW)
+        params = init_params(graph, seed=0)
+        cal = calibrate(graph, params, x_cal, device=device)
+        report = error_report(cal, x, INFER_METHODS)
+        log(format_report(report, title=f"[infer] {model} {INFER_HW} x "
+                                         f"{INFER_BATCH} images, nbits={cal.nbits}"))
+        o_logits, o_accs = forward(cal, x, "int8", collect=True)
+        for method in ("refmlm", "refmlm_kom3", "schoolbook_int16", "karatsuba_int16"):
+            logits, accs = forward(cal, x, method, collect=True)
+            assert all(torch.equal(a, o) for a, o in zip(accs, o_accs)), \
+                f"{model} {method}: accumulators != int8 oracle"
+            assert torch.equal(logits, o_logits), f"{model} {method}: logits"
+            assert report[method]["top1_vs_oracle"] == 1.0
+        assert report["mitchell_ecc2"]["top1_vs_oracle"] >= 0.75
+        # the card's bytes == the port's CPU path on the first images
+        cpu = with_scales(graph, params, export_scales(cal), device="cpu")
+        xs = x[:INFER_CPU_BATCH]
+        for method in INFER_METHODS[1:]:
+            logits, accs = forward(cal, xs, method, collect=True)
+            c_logits, c_accs = forward(cpu, xs, method, collect=True)
+            assert torch.equal(logits.cpu(), c_logits), f"{model} {method}: card != cpu"
+            assert all(torch.equal(a.cpu(), c) for a, c in zip(accs, c_accs)), \
+                f"{model} {method}: card accumulators != cpu"
+    torch.cuda.synchronize()
+    launches = matmul_launches()
+    log(f"[infer] cnn + mlp: report, §14 contract and card == cpu in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    missing = [name for name, count in launches.items() if count == 0]
+    assert not missing, f"kernels never launched on the infer path: {missing}"
+    return launches
+
+
+def lns_ops_per_product(num_ecc: int, case_split: bool) -> int:
+    """Integer operations of one Mitchell-family product as the kernel forms
+    it (csrc/mitchell_matmul.cu): per stage the exponent add, three shifts
+    and two adds; the case split's compare, select and shift; the sign and
+    the accumulate."""
+    return 6 * (num_ecc + 1) + (3 if case_split else 0) + 2
+
+
+def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
+                       int32_ops_per_s: float) -> dict[tuple, dict]:
+    """Each matmul kernel at the full-width shape on the operands the main
+    path quantized, beside its plain version (one run), its bound and, for
+    the limb kernel, torch._int_mm on int8 limbs."""
+    from repro_torch.core.quant import quantize_limbs, quantize_magnitude
+    from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import mitchell_matmul as mm
+
+    m, k, n = MM_SHAPE
+    results = {}
+    qa, qb = quantize_magnitude(x, 8), quantize_magnitude(w, 8)
+    a, b = qa.magnitude * qa.sign, qb.magnitude * qb.sign
+    for num_ecc, split in LNS_VARIANTS:
+        kw = dict(num_ecc=num_ecc, case_split=split)
+        ops = lns_ops_per_product(num_ecc, split) * m * k * n
+        nbytes = 4 * (m * k + k * n + m * n)
+        ops_ms, bytes_ms = ops / int32_ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"kernel": "mitchell_matmul", "shape": list(MM_SHAPE), **kw,
+               "kernel_ms": time_ms(lambda: mm.mitchell_matmul_kernel(a, b, **kw), 10),
+               "plain_ms": time_ms(lambda: mm.mitchell_matmul_plain(a, b, **kw), 1,
+                                   warmup=0),
+               "plain_runs": 1,
+               "ops_per_product": lns_ops_per_product(num_ecc, split),
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "library_ms": None,
+               "library": "none: no PyTorch call computes Mitchell products"}
+        results[("mitchell_matmul", num_ecc, split)] = row
+        log(json.dumps(row))
+    for kar in (True, False):
+        da, _ = quantize_limbs(x, karatsuba=kar)
+        db, _ = quantize_limbs(w, karatsuba=kar)
+        limbs = (da.hi, da.lo, db.hi, db.lo)
+        i8 = [t.to(torch.int8) for t in limbs]
+        assert all(torch.equal(t8.to(torch.int32), t) for t8, t in zip(i8, limbs))
+        ah, al, bh, bl = i8
+        if kar:
+            asum, bsum = (ah.to(torch.int32) + al).to(torch.int8), (bh.to(torch.int32) + bl).to(torch.int8)
+            library = lambda: (torch._int_mm(ah, bh), torch._int_mm(al, bl),
+                               torch._int_mm(asum, bsum))
+        else:
+            library = lambda: (torch._int_mm(ah, bh), torch._int_mm(al, bl),
+                               torch._int_mm(ah, bl), torch._int_mm(al, bh))
+        passes = 3 if kar else 4
+        ops_ms = passes * 2 * m * k * n / INT8_OPS_PER_S * 1e3
+        bytes_ms = 4 * (2 * m * k + 2 * k * n + 3 * m * n) / HBM_BYTES_PER_S * 1e3
+        row = {"kernel": "karatsuba_matmul", "shape": list(MM_SHAPE), "karatsuba": kar,
+               "kernel_ms": time_ms(lambda: km.karatsuba_matmul_kernel(*limbs, karatsuba=kar), 10),
+               "plain_ms": time_ms(lambda: km.karatsuba_matmul_plain(*limbs, karatsuba=kar), 3,
+                                   warmup=1),
+               "plain_runs": 3,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "library_ms": time_ms(library, 10),
+               "library": f"{passes} torch._int_mm calls on the int8 limbs "
+                          "(the same partial sums)"}
+        results[("karatsuba_matmul", kar)] = row
+        log(json.dumps(row))
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401 -- fails here when run without the repository
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    kind = phase_card()
+    kind, int32_ops_per_s = phase_card()
     phase_build()
     from repro_torch.filters.conv import KERNELS
-    max_err = dict.fromkeys(KERNELS, 0)
+    max_err = dict.fromkeys(KERNELS + MATMUL_KERNELS, 0)
     phase_parity(max_err)
+    phase_matmul_parity(max_err, device)
     launches, main_frames = phase_main(device)
+    mm_launches, (x, w) = phase_matmul_main(device)
+    infer_launches = phase_infer_main(device)
+    for name in MATMUL_KERNELS:
+        launches[name] = mm_launches[name] + infer_launches[name]
     scale_frames = phase_scale(device)
-    times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames})
+    times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
+                        int32_ops_per_s)
+    mm_times = phase_matmul_times(x, w, int32_ops_per_s)
     kernels = []
     for name in KERNELS:
         t = times[(name, "refmlm", MAIN_SHAPE)]
@@ -407,6 +708,18 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": REPLACES[source.removesuffix(".cu")],
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    for name, key in (("mitchell_matmul", ("mitchell_matmul", 0, True)),
+                      ("karatsuba_matmul", ("karatsuba_matmul", True))):
+        t = mm_times[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -22,6 +22,26 @@ def leading_one_position(x: torch.Tensor) -> torch.Tensor:
     return k
 
 
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 tensor -> int64 tensor holding the int32 two's-complement wrap
+    of each value (an int32 lane's result carried in int64)."""
+    return ((x + (1 << 31)) & ((1 << 32) - 1)) - (1 << 31)
+
+
+def shift_left_int32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """XLA's int32 `x << s` on int32 values carried in int64: the low 32
+    bits of x * 2**s, and 0 when s lies outside [0, 31]."""
+    ok = (s >= 0) & (s < 32)
+    return torch.where(ok, wrap32(x << s.clamp(0, 31)), 0)
+
+
+def shift_right_int32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """XLA's arithmetic int32 `x >> s` on int32 values carried in int64:
+    the sign fill (0 or -1) when s lies outside [0, 31]."""
+    ok = (s >= 0) & (s < 32)
+    return torch.where(ok, x >> s.clamp(0, 31), torch.where(x < 0, -1, 0))
+
+
 def bit_width_mask(nbits: int) -> int:
     return (1 << nbits) - 1
 
@@ -34,4 +54,5 @@ def split_halves(x: torch.Tensor, nbits: int) -> tuple[torch.Tensor, torch.Tenso
     return (x >> half) & bit_width_mask(half), x & bit_width_mask(half)
 
 
-__all__ = ["bit_width_mask", "leading_one_position", "split_halves"]
+__all__ = ["bit_width_mask", "leading_one_position", "shift_left_int32",
+           "shift_right_int32", "split_halves", "wrap32"]

@@ -1,8 +1,8 @@
 """Synthetic fingerprint-like images and noise models (paper §3.3, Table 10).
 
-A copy of `fingerprint`, `add_salt_pepper` and `psnr` from
-`repro.data.images`: numpy only, made from a `default_rng` seed, so both
-packages see the same pixels. FVC2004 is not redistributable, so the PSNR
+A copy of `fingerprint`, `inference_batch`, `add_salt_pepper` and `psnr`
+from `repro.data.images`: numpy only, made from a `default_rng` seed, so
+both packages see the same pixels. FVC2004 is not redistributable, so the PSNR
 experiment uses a deterministic ridge-pattern generator.
 """
 from __future__ import annotations
@@ -26,6 +26,18 @@ def fingerprint(hw: tuple[int, int] = (256, 256), seed: int = 0) -> np.ndarray:
     return img.astype(np.uint8)
 
 
+def inference_batch(n: int, hw: tuple[int, int] = (8, 8), seed: int = 0) -> np.ndarray:
+    """float32 batch in [0, 1], shape (n, *hw): box-downsampled fingerprint
+    patches feeding the `repro_torch.infer` models. Deterministic in (n, hw,
+    seed) so calibration sets and eval sets are reproducible."""
+    h, w = hw
+    out = np.empty((n, h, w), dtype=np.float32)
+    for i in range(n):
+        full = fingerprint((h * 4, w * 4), seed=seed + i).astype(np.float32)
+        out[i] = full.reshape(h, 4, w, 4).mean(axis=(1, 3)) / 255.0
+    return out
+
+
 def add_salt_pepper(img: np.ndarray, percent: int, seed: int = 0) -> np.ndarray:
     """percent% of pixels forced to 0 or 255 (paper Table 10 noise sweep)."""
     rng = np.random.default_rng(seed + percent)
@@ -43,4 +55,4 @@ def psnr(base: np.ndarray, test: np.ndarray, peak: float = 255.0) -> float:
     return float(10.0 * np.log10(peak * peak / max(mse, 1e-12)))
 
 
-__all__ = ["add_salt_pepper", "fingerprint", "psnr"]
+__all__ = ["add_salt_pepper", "fingerprint", "inference_batch", "psnr"]

@@ -45,7 +45,7 @@ from repro_torch.core.kcm import (
 )
 from repro_torch.core.mitchell import MAX_NBITS, wrap_int32
 from repro_torch.core.refmlm import SUPPORTED_WIDTHS
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import launch
 
 MULT_IMPLS = ("recurse", "kcm", "auto")
 POSTS = ("none", "clip", "abs")              # index = the kernels' post code
@@ -153,25 +153,13 @@ def fused_separable_recurse_plain(x: torch.Tensor, row: np.ndarray,
 # ----------------------------------------------------------- kernel wrappers
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "conv_pass_kcm": ("conv_pass", [_P, _P, _I, _P] + [_I] * 7 + [_P]),
-    "conv_pass_recurse": ("conv_pass", [_P, _P, _I, _I, _I, _P] + [_I] * 7 + [_P]),
-    "fused_separable_kcm": ("fused_separable",
-                            [_P, _P, _I, _P, _I, _P] + [_I] * 7 + [_P]),
+_SIGNATURES = {    # the entry points' argument types, the stream aside
+    "conv_pass_kcm": ("conv_pass", (_P, _P, _I, _P) + (_I,) * 7),
+    "conv_pass_recurse": ("conv_pass", (_P, _P, _I, _I, _I, _P) + (_I,) * 7),
+    "fused_separable_kcm": ("fused_separable", (_P, _P, _I, _P, _I, _P) + (_I,) * 7),
     "fused_separable_recurse": ("fused_separable",
-                                [_P, _P, _P, _I, _I, _I, _I, _P] + [_I] * 7 + [_P]),
+                                (_P, _P, _P, _I, _I, _I, _I, _P) + (_I,) * 7),
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str):
-    lib = load_library(_SIGNATURES[name][0])
-    fn = getattr(lib, name)
-    fn.argtypes = _SIGNATURES[name][1]
-    fn.restype = ctypes.c_int
-    lib.repro_error_string.argtypes = [ctypes.c_int]
-    lib.repro_error_string.restype = ctypes.c_char_p
-    return fn, lib
 
 
 def _launch(name: str, x: torch.Tensor, args_for) -> torch.Tensor:
@@ -181,13 +169,8 @@ def _launch(name: str, x: torch.Tensor, args_for) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn, lib = _kernel_fn(name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), *args_for(out), stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.repro_error_string(err).decode()})")
+    library, argtypes = _SIGNATURES[name]
+    launch(library, name, argtypes, x.device, x.data_ptr(), *args_for(out))
     LAUNCHES[name] += 1
     return out
 

@@ -11,6 +11,10 @@ into `build/repro_torch/<digest>/` at the repository root (listed in
 `.gitignore`), where `<digest>` hashes the sources and the flags, so a
 changed source rebuilds and an unchanged one is reused. The build happens
 at first use. With no `nvcc`, or a failed build, it raises.
+
+Every C entry point takes the stream to launch on as its last argument
+and returns `cudaGetLastError()`; `launch` calls one on the current stream
+of a device and raises on a non-zero return with CUDA's message for it.
 """
 from __future__ import annotations
 
@@ -22,10 +26,12 @@ import subprocess
 from functools import lru_cache
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-SOURCES = ("conv_pass", "fused_separable")
+SOURCES = ("conv_pass", "fused_separable", "karatsuba_matmul", "mitchell_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -90,5 +96,31 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build()[name]))
 
 
+@lru_cache(maxsize=None)
+def _entry_point(library: str, name: str, argtypes: tuple):
+    """The C entry point `name` of `lib<library>.so` with its ctypes
+    argument types set (the stream last) and an int (cudaError_t) result."""
+    lib = load_library(library)
+    fn = getattr(lib, name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def launch(library: str, name: str, argtypes: tuple, device: torch.device,
+           *args) -> None:
+    """Call entry point `name` of `lib<library>.so` with `args` (ctypes
+    `argtypes`) and the current stream of `device`; raise if it returns a
+    CUDA error."""
+    fn = _entry_point(library, name, tuple(argtypes))
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        msg = load_library(library).repro_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
 __all__ = ["BUILD_ROOT", "CSRC", "DEFAULT_CUDA_HOME", "NVCC_FLAGS", "SOURCES", "build",
-           "find_nvcc", "load_library", "source_digest"]
+           "find_nvcc", "launch", "load_library", "source_digest"]
