@@ -6,15 +6,19 @@
 Phases, each fatal on failure:
   1. card   -- the device name, and nvidia-smi's name and power limit;
   2. build  -- nvcc builds every kernel of `src/repro_torch/csrc` for sm_90a;
-  3. parity -- each of the six kernels against its plain PyTorch version on
-               the same CUDA tensors (torch.equal). The four conv kernels:
+               the SASS of `karatsuba_matmul_i8` must hold IMMA instructions;
+  3. parity -- each of the seven kernels against its plain PyTorch version
+               on the same CUDA tensors (torch.equal). The four conv kernels:
                every bank filter and the paper's Fig. 9 table x six
                multipliers x two shapes, plus the 16-bit signed second pass
-               of the two-pass dataflow. The two matmul kernels: every
-               (num_ecc, case_split) of `mitchell_matmul` and both
-               `karatsuba_matmul` modes on ragged shapes (quantized-range
-               and full-range int32 operands) and on the full-width shape
-               below with M cut to 256 rows;
+               of the two-pass dataflow, and every measurement variant of
+               `conv_pass_kcm`. The three matmul kernels: every
+               (num_ecc, case_split) of `mitchell_matmul`; both limb modes of
+               `karatsuba_matmul_i8` (int8 limbs, their edges -128 / 127 and
+               hi + lo = -128 included) and of the wide `karatsuba_matmul`
+               (limbs past int8, up to 2**20) on ragged shapes and on the
+               full-width shape below with M cut to 256 rows; each limb call
+               must take the kernel the wrapper's rule names;
   4. main   -- the filter path: the port's entry points on N=8 480x640
                noisy fingerprint frames (the FVC2004 DB1 frame size): the
                filter bank for every multiplier through the default plans
@@ -25,22 +29,28 @@ Phases, each fatal on failure:
   5. matmul -- the quantized-matmul path at full width: `core.matmul(impl=
                'auto')` for the six kernel methods and `kernels.ops.
                lns_matmul` / `limb_matmul` on the Qwen2-0.5B MLP up-projection
-               (d_model 896 -> d_ff 4864, M = 2048 tokens); both matmul
-               kernels must have been launched;
+               (d_model 896 -> d_ff 4864, M = 2048 tokens); `mitchell_matmul`
+               and `karatsuba_matmul_i8` must have been launched, the wide
+               `karatsuba_matmul` never;
   6. infer  -- `infer.forward` of cnn and mlp over a 256-image 64x64 batch,
                calibrated on the card: the Table-10-style report, the §14
                contract (refmlm, refmlm_kom3, schoolbook_int16 and
                karatsuba_int16 accumulators byte-equal to the int8 oracle),
                and the card's bytes equal to the port's CPU path on the first
-               images for every quantized method; both matmul kernels must
-               have been launched;
-  7. scale  -- apply_filter(gaussian5, refmlm) on N=16 2048x2048 frames;
-  8. times  -- each kernel with CUDA events (median after warm-up) beside
+               images for every quantized method; the same launches as 5;
+  7. wide   -- `infer.forward` of both models calibrated at 14 bits with
+               karatsuba_int16, whose limbs pass int8 (w = 7, |hi| up to 128):
+               accumulators equal to the int8 oracle, and the wide
+               `karatsuba_matmul` must have been launched;
+  8. scale  -- apply_filter(gaussian5, refmlm) on N=16 2048x2048 frames;
+  9. times  -- each kernel with CUDA events (median after warm-up) beside
                its plain version, its bound and, where PyTorch has one call
                that computes the same sums, that call; the matmul kernels at
-               the full-width shape.
-The line before the last is a JSON object naming the six kernels with their
-numbers; the last line is the run's result and device.
+               the full-width shape; `conv_pass_kcm`'s measurement variants
+               (the tiled kernel it replaced, ROM per tile or once, cp.async
+               or stage_window window) at both shapes, on [variant] lines.
+The line before the last is a JSON object naming the seven kernels with
+their numbers; the last line is the run's result and device.
 """
 from __future__ import annotations
 
@@ -70,8 +80,18 @@ SOURCES = {"conv_pass_kcm": "conv_pass.cu", "conv_pass_recurse": "conv_pass.cu",
 REPLACES = {"conv_pass": "src/repro/filters/conv.py:263",
             "fused_separable": "src/repro/filters/conv.py:446",
             "mitchell_matmul": "src/repro/kernels/mitchell_matmul.py:141",
-            "karatsuba_matmul": "src/repro/kernels/karatsuba_matmul.py:122"}
-MATMUL_KERNELS = ("mitchell_matmul", "karatsuba_matmul")
+            "karatsuba_matmul": "src/repro/kernels/karatsuba_matmul.py:122",
+            "karatsuba_matmul_i8": "src/repro/kernels/karatsuba_matmul.py:122"}
+MATMUL_KERNELS = ("mitchell_matmul", "karatsuba_matmul", "karatsuba_matmul_i8")
+# conv_pass_kcm_variant codes (csrc/conv_pass.cu) -> what each switches
+KCM_VARIANTS = {0: "tiled kernel (ROM and window per 32x16 tile)",
+                1: "persistent, ROM per tile, stage_window",
+                2: "persistent, ROM per tile, cp.async window",
+                3: "persistent, ROM once, stage_window",
+                4: "persistent, ROM once, cp.async window (= conv_pass_kcm)"}
+# 5: as 4 without the tap products (the window's centre pixel out): the time
+# of the staging and the stores alone. Timed, not compared: its bytes differ.
+KCM_COPY_VARIANT = 5
 # The Qwen2-0.5B MLP up-projection (src/repro/configs/qwen2_0_5b.py:
 # d_model 896 -> d_ff 4864) over 2048 tokens.
 MM_SHAPE = (2048, 896, 4864)
@@ -83,6 +103,7 @@ KERNEL_METHODS = ("mitchell", "mitchell_ecc1", "mitchell_ecc2", "mitchell_ecc3",
 INFER_HW = (64, 64)
 INFER_BATCH = 256
 INFER_CPU_BATCH = 4
+WIDE_NBITS = 14
 
 
 def log(*parts) -> None:
@@ -95,16 +116,16 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
 
 
-def phase_card() -> tuple[str, float]:
-    """-> (device name, the card's INT32 operation rate: INT32_LANES x its
-    maximum SM clock)."""
+def phase_card() -> tuple[str, str, float]:
+    """-> (device name, nvidia-smi's name and power limit, the card's INT32
+    operation rate: INT32_LANES x its maximum SM clock)."""
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"[card] {name}")
     log(smi)
     log(f"[card] max SM clock {mhz} MHz; INT32 rate {INT32_LANES * mhz * 1e6:.6g} ops/s")
-    return name, INT32_LANES * mhz * 1e6
+    return name, smi, INT32_LANES * mhz * 1e6
 
 
 def phase_build() -> None:
@@ -115,9 +136,23 @@ def phase_build() -> None:
         f"({build.NVCC_FLAGS[1]})")
     for name, lib in libs.items():
         log_file = lib.parent / f"{name}.log"
+        entry = ""
         for line in log_file.read_text().splitlines() if log_file.exists() else []:
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}: {entry}: {line.strip()}")
+    # the int8 limb kernel must run on the tensor cores: IMMA in its SASS
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    if cuobjdump.is_file():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs["karatsuba_matmul_i8"])],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        imma = sum("IMMA" in line for line in sass.splitlines())
+        log(f"[build] karatsuba_matmul_i8: {imma} IMMA (int8 tensor-core) instructions "
+            "in its SASS")
+        assert imma > 0, "karatsuba_matmul_i8 has no tensor-core instruction"
+    else:
+        log(f"[build] no {cuobjdump}: the SASS of karatsuba_matmul_i8 is not checked")
 
 
 def noisy_frames(n: int, hw: tuple[int, int], percent: int, seed: int) -> np.ndarray:
@@ -125,6 +160,23 @@ def noisy_frames(n: int, hw: tuple[int, int], percent: int, seed: int) -> np.nda
     return np.stack([add_salt_pepper(fingerprint(hw, seed=seed + i), percent,
                                      seed=seed + 100 + i)
                      for i in range(n)]).astype(np.int32)
+
+
+def kcm_variant(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, shift: int,
+                post: str, variant: int) -> torch.Tensor:
+    """conv_pass_kcm through measurement variant `variant` (KCM_VARIANTS);
+    not counted as a launch of the port."""
+    import ctypes
+
+    from repro_torch.filters.conv import POSTS
+    from repro_torch.kernels.build import launch
+    argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p) \
+        + (ctypes.c_int,) * 8
+    out = torch.empty_like(x)
+    launch("conv_pass", "conv_pass_kcm_variant", argtypes, x.device, x.data_ptr(),
+           rom.data_ptr(), rom.shape[1], out.data_ptr(), *x.shape, kh, kw, shift,
+           POSTS.index(post), variant)
+    return out
 
 
 def phase_parity(max_err: dict[str, int]) -> None:
@@ -136,6 +188,11 @@ def phase_parity(max_err: dict[str, int]) -> None:
     direct = [(name, spec.taps, spec.shift, spec.post)
               for name, spec in FILTER_BANK.items()]
     direct.append(("fig9", gaussian_kernel_3x3(1.0, 256), 8, "clip"))
+    # tap shapes outside the bank's run conv_pass_kcm's tiled kernel, with the
+    # ROM stack in shared memory (2x3) or, past 32 KB, in global memory (7x5)
+    odd = np.random.default_rng(3)
+    direct += [("odd2x3", odd.integers(-20, 21, (2, 3)), 4, "abs"),
+               ("odd7x5", odd.integers(-20, 21, (7, 5)), 6, "clip")]
     separable = [(name, spec) for name, spec in FILTER_BANK.items()
                  if spec.separable]
     checked = 0
@@ -160,9 +217,13 @@ def phase_parity(max_err: dict[str, int]) -> None:
                 kh, kw = taps.shape
                 rom = conv.rom_stack(method, taps, 8, x.device)
                 kw_ = dict(shift=shift, post=post)
+                want = conv.conv_pass_kcm_plain(x, rom, kh, kw, **kw_)
                 check("conv_pass_kcm", conv.conv_pass_kcm(x, rom, kh, kw, **kw_),
-                      conv.conv_pass_kcm_plain(x, rom, kh, kw, **kw_),
-                      f"{name} {method} {shape}")
+                      want, f"{name} {method} {shape}")
+                if method in ("refmlm", "mitchell"):
+                    for v in KCM_VARIANTS if (kh, kw) == (3, 3) else ():
+                        check("conv_pass_kcm", kcm_variant(x, rom, kh, kw, shift, post, v),
+                              want, f"variant {v} {name} {method} {shape}")
                 t64 = np.asarray(taps, np.int64)
                 check("conv_pass_recurse",
                       conv.conv_pass_recurse(x, t64, method=method, nbits=8, **kw_),
@@ -343,6 +404,41 @@ def time_ms(fn, runs: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def time_ms_batched(fn, calls: int = 10, runs: int = 5) -> float:
+    """Median over `runs` of the CUDA-event time of `calls` back-to-back
+    calls, divided by `calls`: the device time of one call once the host
+    enqueues ahead of the card."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+# Integer operations of one tap as csrc/multipliers.cuh forms it, counted on
+# the INT32 lanes: 3 for the sign and the accumulate (|x|, the signed add)
+# plus the product: a ROM gather for kcm; one multiply for exact; for REFMLM
+# (nbits/2)**2 2x2 leaves of about 15 operations each (the digits, the
+# efmlm2 case split and correction, the shifted add).
+KCM_TAP_OPS = 4
+
+
+def tap_ops(method: str, nbits: int) -> int:
+    if method == "exact":
+        return 3 + 1
+    if method == "refmlm":
+        return 3 + (nbits // 2) ** 2 * 15
+    raise ValueError(f"no operation count for {method!r}")
+
+
 def phase_times(inputs: dict[tuple, torch.Tensor],
                 int32_ops_per_s: float) -> dict[tuple, dict]:
     """{(kernel, method, shape): numbers} on the main-path and scale-phase
@@ -378,11 +474,12 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
             ("conv_pass_kcm", "refmlm",
              lambda: conv.conv_pass_kcm(x, rom9, 3, 3, **direct_kw),
              lambda: conv.conv_pass_kcm_plain(x, rom9, 3, 3, **direct_kw),
-             rom9.numel() * 4, 9, lib_direct),
+             rom9.numel() * 4, 9 * KCM_TAP_OPS, lib_direct),
             ("fused_separable_kcm", "refmlm",
              lambda: conv.fused_separable_kcm(x, rrom, crom, **sep_kw),
              lambda: conv.fused_separable_kcm_plain(x, rrom, crom, **sep_kw),
-             (rrom.numel() + crom.numel()) * 4, row.size + col.size, lib_sep),
+             (rrom.numel() + crom.numel()) * 4, (row.size + col.size) * KCM_TAP_OPS,
+             lib_sep),
         ]
         for method in ("refmlm", "exact"):
             rk = dict(method=method, nbits=8, **direct_kw)
@@ -391,16 +488,17 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
                 ("conv_pass_recurse", method,
                  lambda rk=rk: conv.conv_pass_recurse(x, fig9, **rk),
                  lambda rk=rk: conv.conv_pass_recurse_plain(x, fig9, **rk),
-                 fig9.size * 4, 9, lib_direct),
+                 fig9.size * 4, 9 * tap_ops(method, 8), lib_direct),
                 ("fused_separable_recurse", method,
                  lambda fk=fk: conv.fused_separable_recurse(x, row, col, **fk),
                  lambda fk=fk: conv.fused_separable_recurse_plain(x, row, col, **fk),
-                 (row.size + col.size) * 4, row.size + col.size, lib_sep),
+                 (row.size + col.size) * 4,
+                 row.size * tap_ops(method, 8) + col.size * tap_ops(method, 16), lib_sep),
             ]
-        for name, method, kernel, plain, coef_bytes, taps, library in cases:
+        for name, method, kernel, plain, coef_bytes, pixel_ops, library in cases:
             pixels = x.numel()
             nbytes = pixels * 4 * 2 + coef_bytes     # int32 in + int32 out
-            ops = 2 * taps * pixels                  # a multiply and an add per tap
+            ops = pixel_ops * pixels
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / int32_ops_per_s * 1e3
             plain_runs = 1 if big and "recurse" in name else (3 if big else 5)
@@ -409,6 +507,7 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
                 "filter": "fig9" if name.startswith("conv") else fused_name,
                 "method": method,
                 "kernel_ms": time_ms(kernel, 20),
+                "kernel_device_ms": time_ms_batched(kernel),
                 "plain_ms": time_ms(plain, plain_runs, warmup=1),
                 "plain_runs": plain_runs,
                 "bound_ms": max(bytes_ms, ops_ms),
@@ -419,6 +518,16 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
             }
             results[(name, method, tuple(shape))] = row_
             log(json.dumps(row_))
+        for v, what in KCM_VARIANTS.items():
+            call = lambda v=v: kcm_variant(x, rom9, 3, 3, 8, "clip", v)
+            ms, device_ms = time_ms(call, 20), time_ms_batched(call)
+            log(f"[variant] conv_pass_kcm {v} ({what}) fig9 refmlm {shape}: {ms} ms "
+                f"a call, {device_ms} ms device time (10 calls back to back)")
+        call = lambda: kcm_variant(x, rom9, 3, 3, 0, "none", KCM_COPY_VARIANT)
+        assert torch.equal(call(), x), "the staging variant does not copy its input"
+        log(f"[variant] conv_pass_kcm {KCM_COPY_VARIANT} (as 4, window centre out, no "
+            f"taps) {shape}: {time_ms_batched(call)} ms device time; x.clone() "
+            f"{time_ms_batched(lambda: x.clone())} ms")
         del xf
         torch.cuda.empty_cache()
     return results
@@ -444,17 +553,58 @@ def mm_operands(shape: tuple[int, int, int], lo: int, hi: int, seed: int,
                  for s in ((m, k), (k, n), (m, k), (k, n)))
 
 
+def int8_limbs(shape: tuple[int, int, int], karatsuba: bool, seed: int,
+               device: torch.device, edge: tuple[int, int] | None = None):
+    """Seeded limbs a_hi, a_lo (M, K), b_hi, b_lo (K, N) that fit the int8
+    kernel (hi + lo too for Karatsuba), with the range's edges written into
+    the first row of A and column of B; `edge` = (hi, lo) overwrites one
+    pair of each operand."""
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    lim = 64 if karatsuba else 128
+    ah, al = (rng.integers(-lim, lim, (m, k)) for _ in range(2))
+    bh, bl = (rng.integers(-lim, lim, (k, n)) for _ in range(2))
+    if karatsuba:               # hi + lo = -128, -128, 127, and single limbs at the edges
+        edges = ((-64, -64), (-128, 0), (127, 0), (0, -128))
+    else:
+        edges = ((-128, 127), (127, -128), (-128, -128), (127, 127))
+    for j, (hi, lo) in enumerate(edges[:k]):
+        ah[0, j], al[0, j], bh[j, 0], bl[j, 0] = hi, lo, hi, lo
+    if edge is not None:
+        ah[m - 1, k - 1], al[m - 1, k - 1] = edge
+        bh[k - 1, n - 1], bl[k - 1, n - 1] = edge
+    return tuple(torch.from_numpy(v.astype(np.int32)).to(device) for v in (ah, al, bh, bl))
+
+
 def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
-    """Both matmul kernels against their plain versions on the same CUDA
-    tensors: every LNS variant and both limb modes, on ragged shapes with
-    quantized-range and wider operands, and at the full-width shape with M
-    cut to MM_PLAIN_ROWS."""
+    """The matmul kernels against their plain versions on the same CUDA
+    tensors: every LNS variant; both limb modes on int8 limbs (the int8
+    kernel), on limbs just past int8 and on limbs up to 2**20 (the wide
+    kernel), on ragged shapes and at the full-width shape with M cut to
+    MM_PLAIN_ROWS. Each limb call must launch the kernel that the wrapper's
+    rule (`select_route`) names for its limbs."""
     from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import karatsuba_matmul_i8 as i8
     from repro_torch.kernels import mitchell_matmul as mm
 
     failures: list[str] = []
     checked = 0
     m, k, n = MM_SHAPE
+
+    def limb_check(limbs, kar: bool, what: str, route: str) -> None:
+        nonlocal checked
+        if i8.select_route(*limbs, karatsuba=kar) != route:
+            failures.append(f"{what}: the rule does not pick {route}")
+        before = matmul_launches()
+        got = km.karatsuba_matmul_kernel(*limbs, karatsuba=kar)
+        want = km.karatsuba_matmul_plain(*limbs, karatsuba=kar)
+        ran = [name for name, count in matmul_launches().items() if count != before[name]]
+        if ran != [route]:
+            failures.append(f"{what}: launched {ran}, expected [{route}]")
+        for part, g, w in zip(("hh", "mid", "ll"), got, want):
+            check_equal(max_err, failures, route, g, w, f"karatsuba={kar} {part} {what}")
+        checked += 1
+
     cases = [(shape, lo, hi, f"{shape} in [{lo}, {hi})")
              for shape in MM_PARITY_SHAPES
              for lo, hi in ((-255, 256), (-(1 << 20), 1 << 20))]
@@ -468,12 +618,16 @@ def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
                         mm.mitchell_matmul_plain(a, b, **kw), f"{kw} {what}")
             checked += 1
         for kar in (True, False):
-            got = km.karatsuba_matmul_kernel(a, a_lo, b, b_lo, karatsuba=kar)
-            want = km.karatsuba_matmul_plain(a, a_lo, b, b_lo, karatsuba=kar)
-            for part, g, w in zip(("hh", "mid", "ll"), got, want):
-                check_equal(max_err, failures, "karatsuba_matmul", g, w,
-                            f"karatsuba={kar} {part} {what}")
-            checked += 1
+            limb_check((a, a_lo, b, b_lo), kar, what, "karatsuba_matmul")
+    for i, shape in enumerate(MM_PARITY_SHAPES + ((MM_PLAIN_ROWS, k, n),)):
+        for kar in (True, False):
+            limb_check(int8_limbs(shape, kar, 60 + i, device), kar,
+                       f"{shape} int8 limbs", "karatsuba_matmul_i8")
+    for i, shape in enumerate(MM_PARITY_SHAPES):     # one pair just past the rule
+        for kar, edge in ((True, (64, 64)), (True, (-65, -64)), (False, (128, 0)),
+                          (False, (0, -129))):
+            limb_check(int8_limbs(shape, kar, 70 + i, device, edge), kar,
+                       f"{shape} limbs {edge}", "karatsuba_matmul")
     # every int32 operand, the edge values included, through the LNS kernel
     rng = np.random.default_rng(49)
     for shape in MM_PARITY_SHAPES:
@@ -499,15 +653,28 @@ def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
 
 def matmul_launches() -> dict[str, int]:
     from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import karatsuba_matmul_i8 as i8
     from repro_torch.kernels import mitchell_matmul as mm
-    return {**mm.LAUNCHES, **km.LAUNCHES}
+    return {**mm.LAUNCHES, **km.LAUNCHES, **i8.LAUNCHES}
 
 
 def reset_matmul_launches() -> None:
     from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import karatsuba_matmul_i8 as i8
     from repro_torch.kernels import mitchell_matmul as mm
     mm.reset_launches()
     km.reset_launches()
+    i8.reset_launches()
+
+
+def check_quantized_launches(launches: dict[str, int], path: str) -> None:
+    """The quantized paths run `mitchell_matmul` and the int8 limb kernel,
+    never the wide one: their limbs always fit int8."""
+    missing = [name for name in ("mitchell_matmul", "karatsuba_matmul_i8")
+               if launches[name] == 0]
+    assert not missing, f"kernels never launched on the {path} path: {missing}"
+    assert launches["karatsuba_matmul"] == 0, \
+        f"the wide limb kernel ran on the {path} path: {launches}"
 
 
 def phase_matmul_main(device: torch.device) -> tuple[dict[str, int], tuple]:
@@ -556,8 +723,7 @@ def phase_matmul_main(device: torch.device) -> tuple[dict[str, int], tuple]:
         assert errs[name] < 1e-3, f"{name} drifted from the float product"
     for name in ("mitchell", "mitchell_ecc1", "mitchell_ecc2", "mitchell_ecc3"):
         assert errs[name] < 0.25, f"{name} drifted from the float product"
-    missing = [name for name, count in launches.items() if count == 0]
-    assert not missing, f"kernels never launched on the matmul path: {missing}"
+    check_quantized_launches(launches, "matmul")
     return launches, (x, w)
 
 
@@ -601,8 +767,36 @@ def phase_infer_main(device: torch.device) -> dict[str, int]:
     launches = matmul_launches()
     log(f"[infer] cnn + mlp: report, §14 contract and card == cpu in "
         f"{time.perf_counter() - t0:.1f} s; launches {launches}")
-    missing = [name for name, count in launches.items() if count == 0]
-    assert not missing, f"kernels never launched on the infer path: {missing}"
+    check_quantized_launches(launches, "infer")
+    return launches
+
+
+def phase_wide_main(device: torch.device) -> dict[str, int]:
+    """`infer.forward` with karatsuba_int16 on both models calibrated at
+    WIDE_NBITS bits, where the w = 7 limbs pass int8; -> launches by kernel."""
+    from repro_torch.data.images import inference_batch
+    from repro_torch.infer import MODELS, calibrate, forward, init_params
+
+    x_cal = inference_batch(4, INFER_HW, seed=100)
+    x = inference_batch(INFER_BATCH, INFER_HW, seed=0)
+    torch.cuda.synchronize()
+    reset_matmul_launches()
+    t0 = time.perf_counter()
+    for model in ("cnn", "mlp"):
+        graph = MODELS[model](INFER_HW)
+        cal = calibrate(graph, init_params(graph, seed=0), x_cal, nbits=WIDE_NBITS,
+                        device=device)
+        o_logits, o_accs = forward(cal, x, "int8", collect=True)
+        logits, accs = forward(cal, x, "karatsuba_int16", collect=True)
+        assert all(torch.equal(a, o) for a, o in zip(accs, o_accs)), \
+            f"{model} nbits={WIDE_NBITS}: karatsuba_int16 accumulators != int8 oracle"
+        assert torch.equal(logits, o_logits), f"{model} nbits={WIDE_NBITS}: logits"
+    torch.cuda.synchronize()
+    launches = matmul_launches()
+    log(f"[wide] cnn + mlp at nbits={WIDE_NBITS}, karatsuba_int16 == int8 oracle in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    assert launches["karatsuba_matmul"] > 0, \
+        f"the wide limb kernel never launched on the wide path: {launches}"
     return launches
 
 
@@ -617,10 +811,14 @@ def lns_ops_per_product(num_ecc: int, case_split: bool) -> int:
 def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
                        int32_ops_per_s: float) -> dict[tuple, dict]:
     """Each matmul kernel at the full-width shape on the operands the main
-    path quantized, beside its plain version (one run), its bound and, for
-    the limb kernel, torch._int_mm on int8 limbs."""
+    path quantized, beside its plain version, its bound and, for the limb
+    kernels, torch._int_mm on the int8 limbs (B row-major as the limbs lie,
+    and column-major, cuBLAS's faster layout). The int8 kernel is timed
+    through the wrapper (pack, range-check sync, product) and its two steps
+    apart; the wide kernel on the same limbs."""
     from repro_torch.core.quant import quantize_limbs, quantize_magnitude
     from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import karatsuba_matmul_i8 as km8
     from repro_torch.kernels import mitchell_matmul as mm
 
     m, k, n = MM_SHAPE
@@ -648,29 +846,51 @@ def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
         da, _ = quantize_limbs(x, karatsuba=kar)
         db, _ = quantize_limbs(w, karatsuba=kar)
         limbs = (da.hi, da.lo, db.hi, db.lo)
-        i8 = [t.to(torch.int8) for t in limbs]
-        assert all(torch.equal(t8.to(torch.int32), t) for t8, t in zip(i8, limbs))
-        ah, al, bh, bl = i8
+        int8 = [t.to(torch.int8) for t in limbs]
+        assert all(torch.equal(t8.to(torch.int32), t) for t8, t in zip(int8, limbs))
+        ah, al, bh, bl = int8
+        bh_c, bl_c = (t.t().contiguous().t() for t in (bh, bl))   # column-major B
         if kar:
-            asum, bsum = (ah.to(torch.int32) + al).to(torch.int8), (bh.to(torch.int32) + bl).to(torch.int8)
+            asum = (ah.to(torch.int32) + al).to(torch.int8)
+            bsum = (bh.to(torch.int32) + bl).to(torch.int8)
+            bsum_c = bsum.t().contiguous().t()
             library = lambda: (torch._int_mm(ah, bh), torch._int_mm(al, bl),
                                torch._int_mm(asum, bsum))
+            library_c = lambda: (torch._int_mm(ah, bh_c), torch._int_mm(al, bl_c),
+                                 torch._int_mm(asum, bsum_c))
         else:
             library = lambda: (torch._int_mm(ah, bh), torch._int_mm(al, bl),
                                torch._int_mm(ah, bl), torch._int_mm(al, bh))
+            library_c = lambda: (torch._int_mm(ah, bh_c), torch._int_mm(al, bl_c),
+                                 torch._int_mm(ah, bl_c), torch._int_mm(al, bh_c))
         passes = 3 if kar else 4
         ops_ms = passes * 2 * m * k * n / INT8_OPS_PER_S * 1e3
         bytes_ms = 4 * (2 * m * k + 2 * k * n + 3 * m * n) / HBM_BYTES_PER_S * 1e3
-        row = {"kernel": "karatsuba_matmul", "shape": list(MM_SHAPE), "karatsuba": kar,
-               "kernel_ms": time_ms(lambda: km.karatsuba_matmul_kernel(*limbs, karatsuba=kar), 10),
-               "plain_ms": time_ms(lambda: km.karatsuba_matmul_plain(*limbs, karatsuba=kar), 3,
-                                   warmup=1),
-               "plain_runs": 3,
-               "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "library_ms": time_ms(library, 10),
-               "library": f"{passes} torch._int_mm calls on the int8 limbs "
-                          "(the same partial sums)"}
+        common = {"shape": list(MM_SHAPE), "karatsuba": kar,
+                  "plain_ms": time_ms(lambda: km.karatsuba_matmul_plain(*limbs, karatsuba=kar),
+                                      3, warmup=1),
+                  "plain_runs": 3,
+                  "bound_ms": max(ops_ms, bytes_ms),
+                  "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                  "library_ms": time_ms(library, 10),
+                  "library": f"{passes} torch._int_mm calls on the int8 limbs "
+                             "(the same partial sums), B row-major as the limbs lie",
+                  "library_colmajor_ms": time_ms(library_c, 10)}
+        packed = km8.pack(*limbs, karatsuba=kar)
+        assert packed is not None
+        row = {"kernel_ms": time_ms(lambda: km.karatsuba_matmul_kernel(*limbs, karatsuba=kar), 10),
+               "kernel": "karatsuba_matmul_i8 (pack + range-check sync + product)",
+               "pack_ms": time_ms(lambda: km8.pack(*limbs, karatsuba=kar), 10),
+               "pack_device_ms": time_ms_batched(
+                   lambda: km8.pack_async(*limbs, karatsuba=kar)),
+               "product_ms": time_ms(lambda: km8.product(packed), 10),
+               "product_device_ms": time_ms_batched(lambda: km8.product(packed)),
+               **common}
+        results[("karatsuba_matmul_i8", kar)] = row
+        log(json.dumps(row))
+        row = {"kernel": "karatsuba_matmul (wide, on the same int8-valued limbs)",
+               "kernel_ms": time_ms(lambda: km.karatsuba_matmul_wide(*limbs, karatsuba=kar), 10),
+               **common}
         results[("karatsuba_matmul", kar)] = row
         log(json.dumps(row))
     return results
@@ -685,7 +905,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    kind, int32_ops_per_s = phase_card()
+    kind, smi, int32_ops_per_s = phase_card()
     phase_build()
     from repro_torch.filters.conv import KERNELS
     max_err = dict.fromkeys(KERNELS + MATMUL_KERNELS, 0)
@@ -694,8 +914,9 @@ def main() -> int:
     launches, main_frames = phase_main(device)
     mm_launches, (x, w) = phase_matmul_main(device)
     infer_launches = phase_infer_main(device)
-    for name in MATMUL_KERNELS:
+    for name in ("mitchell_matmul", "karatsuba_matmul_i8"):
         launches[name] = mm_launches[name] + infer_launches[name]
+    launches["karatsuba_matmul"] = phase_wide_main(device)["karatsuba_matmul"]
     scale_frames = phase_scale(device)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
@@ -714,7 +935,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
         })
     for name, key in (("mitchell_matmul", ("mitchell_matmul", 0, True)),
-                      ("karatsuba_matmul", ("karatsuba_matmul", True))):
+                      ("karatsuba_matmul", ("karatsuba_matmul", True)),
+                      ("karatsuba_matmul_i8", ("karatsuba_matmul_i8", True))):
         t = mm_times[key]
         kernels.append({
             "name": name, "route": "cuda",
@@ -725,6 +947,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    log(smi)                    # the card's name and power limit, again at the end
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

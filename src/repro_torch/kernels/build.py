@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-SOURCES = ("conv_pass", "fused_separable", "karatsuba_matmul", "mitchell_matmul")
+SOURCES = ("conv_pass", "fused_separable", "karatsuba_matmul", "karatsuba_matmul_i8",
+           "mitchell_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -115,8 +116,12 @@ def launch(library: str, name: str, argtypes: tuple, device: torch.device,
     `argtypes`) and the current stream of `device`; raise if it returns a
     CUDA error."""
     fn = _entry_point(library, name, tuple(argtypes))
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err:
         msg = load_library(library).repro_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

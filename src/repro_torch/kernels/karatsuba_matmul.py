@@ -1,5 +1,6 @@
-"""Limb-decomposed wide-integer matmul: a hand-written CUDA kernel for Hopper
-(`csrc/karatsuba_matmul.cu`) and its plain PyTorch version.
+"""Limb-decomposed wide-integer matmul: two hand-written CUDA kernels for
+Hopper (`csrc/karatsuba_matmul_i8.cu` on the int8 tensor cores,
+`csrc/karatsuba_matmul.cu` on the CUDA cores) and their plain PyTorch version.
 
 Counterpart of `repro.kernels.karatsuba_matmul`. Over balanced limbs
 (`repro_torch.core.quant`) a = a_hi * 2^w + a_lo, b = b_hi * 2^w + b_lo it
@@ -10,15 +11,19 @@ returns the three int32 partial matmuls (hh, mid, ll):
 
 so a caller reconstructs a @ b = hh 2^(2w) + mid 2^w + ll. The limbs are
 int32 tensors (int8 values on the quantized datapath) and every sum wraps
-like int32, so both versions are bit-identical to the reference for any
+like int32, so every version is bit-identical to the reference for any
 int32 limbs.
 
-`karatsuba_matmul_kernel` launches the kernel for CUDA tensors and raises if
-the launch fails; it runs `karatsuba_matmul_plain` only for CPU tensors.
-Each launch adds one to `LAUNCHES['karatsuba_matmul']`. The reference's TPU
-grid arguments (block_m, block_n, block_k, accum) have no counterpart: the
-kernel's tile is a constant of its source, it reduces over K in a loop, and
-it masks the ragged edges itself, so operands need no padding.
+`karatsuba_matmul_kernel` runs `karatsuba_matmul_plain` only for CPU
+tensors. For CUDA tensors it launches one of two kernels and raises if a
+launch fails: `karatsuba_matmul_i8` on the int8 tensor cores when the limbs
+fit int8 (`repro_torch.kernels.karatsuba_matmul_i8`, which holds the rule and
+its own launch count), else `karatsuba_matmul_wide`, the CUDA-core kernel
+for any int32 limbs; each launch of the latter adds one to
+`LAUNCHES['karatsuba_matmul']`. The reference's TPU grid arguments (block_m,
+block_n, block_k, accum) have no counterpart: each kernel's tile is a
+constant of its source, it reduces over K in a loop, and it masks the
+ragged edges itself, so operands need no padding.
 """
 from __future__ import annotations
 
@@ -87,30 +92,62 @@ def karatsuba_matmul_plain(a_hi: torch.Tensor, a_lo: torch.Tensor,
     return hh, wrap32(cross).to(torch.int32), ll
 
 
-def karatsuba_matmul_kernel(a_hi: torch.Tensor, a_lo: torch.Tensor,
-                            b_hi: torch.Tensor, b_lo: torch.Tensor, *,
-                            karatsuba: bool = True):
-    """Raw kernel entry over pre-decomposed int32 limbs (M, K), (K, N) on one
+def karatsuba_matmul_wide(a_hi: torch.Tensor, a_lo: torch.Tensor,
+                          b_hi: torch.Tensor, b_lo: torch.Tensor, *,
+                          karatsuba: bool = True):
+    """The CUDA-core kernel for any int32 limbs (M, K), (K, N) on one
     device; -> (hh, mid, ll), each (M, N) int32 on that device."""
     _check_limbs(a_hi, a_lo, b_hi, b_lo)
     if a_hi.device.type == "cpu":
         return karatsuba_matmul_plain(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)
+    limbs, outs = _cuda_limbs(a_hi, a_lo, b_hi, b_lo), _outputs(a_hi, b_hi)
+    if outs[0].numel() == 0:
+        return outs
+    m, k = a_hi.shape
+    launch(KERNEL, KERNEL, _ARGTYPES, a_hi.device, *(t.data_ptr() for t in limbs),
+           *(t.data_ptr() for t in outs), m, k, b_hi.shape[1], int(karatsuba))
+    LAUNCHES[KERNEL] += 1
+    return outs
+
+
+def _cuda_limbs(a_hi, a_lo, b_hi, b_lo) -> list[torch.Tensor]:
+    """The limbs, contiguous; raises for a device other than CUDA or a shape
+    past the kernels' grids."""
     if a_hi.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA or CPU tensors, got {a_hi.device}")
     m, k = a_hi.shape
     n = b_hi.shape[1]
     if max(m, k, n) >= 1 << 31 or -(-n // _TILE_N) > 65535:
         raise ValueError(f"shape {m}x{k}x{n} exceeds the kernel's grid")
-    limbs = [t.contiguous() for t in (a_hi, a_lo, b_hi, b_lo)]
-    outs = [torch.empty((m, n), dtype=torch.int32, device=a_hi.device)
-            for _ in range(3)]
-    if outs[0].numel() == 0:
-        return tuple(outs)
-    launch(KERNEL, KERNEL, _ARGTYPES, a_hi.device, *(t.data_ptr() for t in limbs),
-           *(t.data_ptr() for t in outs), m, k, n, int(karatsuba))
-    LAUNCHES[KERNEL] += 1
-    return tuple(outs)
+    return [t.contiguous() for t in (a_hi, a_lo, b_hi, b_lo)]
+
+
+def _outputs(a_hi, b_hi) -> tuple[torch.Tensor, ...]:
+    """Three empty (M, N) int32 tensors for hh, mid, ll."""
+    shape = (a_hi.shape[0], b_hi.shape[1])
+    return tuple(torch.empty(shape, dtype=torch.int32, device=a_hi.device)
+                 for _ in range(3))
+
+
+def karatsuba_matmul_kernel(a_hi: torch.Tensor, a_lo: torch.Tensor,
+                            b_hi: torch.Tensor, b_lo: torch.Tensor, *,
+                            karatsuba: bool = True):
+    """Raw kernel entry over pre-decomposed int32 limbs (M, K), (K, N) on one
+    device; -> (hh, mid, ll), each (M, N) int32 on that device. On CUDA the
+    int8 tensor-core kernel when the limbs fit int8, else the wide one."""
+    from repro_torch.kernels import karatsuba_matmul_i8 as i8
+
+    _check_limbs(a_hi, a_lo, b_hi, b_lo)
+    if a_hi.device.type == "cpu":
+        return karatsuba_matmul_plain(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)
+    limbs = _cuda_limbs(a_hi, a_lo, b_hi, b_lo)
+    if a_hi.shape[0] == 0 or b_hi.shape[1] == 0:
+        return _outputs(a_hi, b_hi)
+    packed = i8.pack(*limbs, karatsuba=karatsuba)
+    if packed is not None:
+        return i8.product(packed)
+    return karatsuba_matmul_wide(*limbs, karatsuba=karatsuba)
 
 
 __all__ = ["KERNEL", "LAUNCHES", "int_matmul", "karatsuba_matmul_kernel",
-           "karatsuba_matmul_plain", "reset_launches"]
+           "karatsuba_matmul_plain", "karatsuba_matmul_wide", "reset_launches"]

@@ -1,0 +1,116 @@
+"""The limb kernel on Hopper's int8 tensor cores (`csrc/karatsuba_matmul_i8.cu`)
+and the rule that picks it.
+
+`karatsuba_matmul_kernel` (`repro_torch.kernels.karatsuba_matmul`) takes any
+int32 limbs. On CUDA tensors it first runs this module's pack step, which
+casts the limbs to int8 in the layouts `mma.sync` wants and checks that
+they fit (`select_route`'s rule); one host sync reads the check. Limbs that
+fit go to `karatsuba_matmul_i8`; wider ones to the CUDA-core kernel
+`karatsuba_matmul`. Both give the same bytes as `karatsuba_matmul_plain`.
+
+The rule: every limb in [-128, 127], and for Karatsuba every hi + lo in
+[-128, 127] too (its middle product multiplies the sums). `quantize_limbs`
+guarantees it (w=7 limbs in [-64, 63], w=8 limbs in [-128, 127]), and so do
+`balanced_limbs` of the 8-bit operands `infer.forward` quantizes.
+
+Each launch of the product kernel adds one to
+`LAUNCHES['karatsuba_matmul_i8']`; the pack step is its first half and is
+not counted apart.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.build import launch
+
+KERNEL = "karatsuba_matmul_i8"
+WIDE_KERNEL = "karatsuba_matmul"
+#: kernel name -> number of launches since the last `reset_launches()`.
+LAUNCHES: dict[str, int] = {KERNEL: 0}
+_K_ALIGN = 128                                # kBK of the kernel
+_TILE_N = 64                                  # kBN of the kernel
+_PACK_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
+_PRODUCT_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+
+
+def reset_launches() -> None:
+    LAUNCHES[KERNEL] = 0
+
+
+def limbs_fit_int8(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+                   b_lo: torch.Tensor, *, karatsuba: bool) -> bool:
+    """The int8 kernel's rule, on any device: every limb in [-128, 127] and,
+    for Karatsuba, every hi + lo as well."""
+    def fits(t: torch.Tensor) -> bool:
+        if t.numel() == 0:
+            return True
+        lo, hi = torch.aminmax(t)
+        return -128 <= int(lo) and int(hi) <= 127
+
+    limbs = [a_hi, a_lo, b_hi, b_lo]
+    if karatsuba:
+        limbs += [a_hi.to(torch.int64) + a_lo, b_hi.to(torch.int64) + b_lo]
+    return all(fits(t) for t in limbs)
+
+
+def select_route(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+                 b_lo: torch.Tensor, *, karatsuba: bool) -> str:
+    """Name of the kernel `karatsuba_matmul_kernel` launches for these limbs
+    on the card: KERNEL when they fit int8, else WIDE_KERNEL."""
+    fit = limbs_fit_int8(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)
+    return KERNEL if fit else WIDE_KERNEL
+
+
+class PackedLimbs(NamedTuple):
+    a8: torch.Tensor           # (2, M, Kp) int8: a_hi, a_lo, K contiguous
+    b8: torch.Tensor           # (2, N, Kp) int8: b_hi, b_lo transposed
+    m: int
+    n: int
+    karatsuba: bool
+
+
+def pack_async(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+               b_lo: torch.Tensor, *,
+               karatsuba: bool) -> tuple[PackedLimbs, torch.Tensor]:
+    """Launch the pack step on contiguous (M, K), (K, N) int32 CUDA limbs:
+    int8 copies with K padded to a multiple of 128, and a one-element device flag that
+    turns 1 if a limb does not fit. Nothing waits for it."""
+    m, k = a_hi.shape
+    n = b_hi.shape[1]
+    kp = -(-k // _K_ALIGN) * _K_ALIGN
+    if -(-n // _TILE_N) > 65535 or kp // 32 > 65535 or m * kp >= 1 << 40:
+        raise ValueError(f"shape {m}x{k}x{n} exceeds the int8 kernel's grid")
+    dev = a_hi.device
+    a8 = torch.empty((2, m, kp), dtype=torch.int8, device=dev)
+    b8 = torch.empty((2, n, kp), dtype=torch.int8, device=dev)
+    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    launch(KERNEL, "karatsuba_i8_pack", _PACK_ARGTYPES, dev,
+           *(t.data_ptr() for t in (a_hi, a_lo, b_hi, b_lo, a8, b8, flag)),
+           m, k, n, kp, int(karatsuba))
+    return PackedLimbs(a8, b8, m, n, karatsuba), flag
+
+
+def pack(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+         b_lo: torch.Tensor, *, karatsuba: bool) -> PackedLimbs | None:
+    """`pack_async`, then the range check read with one host sync; None if
+    the limbs do not fit int8."""
+    packed, flag = pack_async(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)
+    return None if int(flag.item()) else packed
+
+
+def product(packed: PackedLimbs) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hh, mid, ll), each (M, N) int32, from limbs that `pack` accepted."""
+    a8, b8, m, n, karatsuba = packed
+    outs = [torch.empty((m, n), dtype=torch.int32, device=a8.device) for _ in range(3)]
+    launch(KERNEL, KERNEL, _PRODUCT_ARGTYPES, a8.device, a8.data_ptr(), b8.data_ptr(),
+           *(t.data_ptr() for t in outs), m, a8.shape[2], n, int(karatsuba))
+    LAUNCHES[KERNEL] += 1
+    return tuple(outs)
+
+
+__all__ = ["KERNEL", "LAUNCHES", "PackedLimbs", "WIDE_KERNEL",
+           "limbs_fit_int8", "pack", "pack_async", "product", "reset_launches",
+           "select_route"]

@@ -8,6 +8,10 @@ byte.
     shapes, with quantized-range and full-range int32 operands;
   * `matmul` for every method x impl against the reference's
     impl='reference' / 'pallas', a batched (3, 4, K) lhs included;
+  * the limb kernel's route on the card as a plain function
+    (`karatsuba_matmul_i8.select_route`): int8 limbs, and for Karatsuba
+    hi + lo in int8 too, take the int8 tensor-core kernel, all else the
+    wide one; CPU limbs take the plain version either way;
   * `lns_matmul` / `limb_matmul` against the reference's entry points run
     op by op (under `jax.jit` XLA refolds their float32 scale constants, a
     last-bit difference held to rtol 5e-7), and the `quant`, `lns` and
@@ -40,6 +44,7 @@ from repro.kernels.karatsuba_matmul import karatsuba_matmul_kernel as j_karatsub
 from repro.kernels.mitchell_matmul import mitchell_matmul_kernel as j_mitchell
 from repro_torch.kernels import build
 from repro_torch.kernels import karatsuba_matmul as tkm
+from repro_torch.kernels import karatsuba_matmul_i8 as tkm8
 from repro_torch.kernels import mitchell_matmul as tmm
 
 # The suite runs in several worker processes; one torch thread each keeps
@@ -429,3 +434,83 @@ def test_kom_rejects_bad_widths_and_op_counts_match():
     for nbits in (2, 4, 8, 16):
         for variant in ("kom4", "kom3"):
             assert tkar.op_counts(nbits, 2, variant) == jkar.op_counts(nbits, 2, variant)
+
+
+# ------------------------------------------- the int8 route of the limb kernel
+
+@pytest.mark.parametrize("axis", [None, 1])
+@pytest.mark.parametrize("karatsuba", [True, False])
+def test_quantized_limbs_select_the_int8_kernel(karatsuba, axis):
+    """Every limb `quantize_limbs` gives (saturated edges included) fits the
+    int8 tensor-core kernel, in both modes."""
+    a = RNG.standard_normal((9, 70)).astype(np.float32) * 50
+    b = RNG.standard_normal((70, 6)).astype(np.float32)
+    a[0, :2], b[:2, 0] = (1e9, -1e9), (-1e9, 1e9)    # q at +-qlim
+    da, _ = tquant.quantize_limbs(_t(a), karatsuba=karatsuba, axis=axis)
+    db, _ = tquant.quantize_limbs(_t(b), karatsuba=karatsuba, axis=axis)
+    route = tkm8.select_route(da.hi, da.lo, db.hi, db.lo, karatsuba=karatsuba)
+    assert route == tkm8.KERNEL == "karatsuba_matmul_i8"
+
+
+# (hi, lo) placed in one limb pair, karatsuba, the kernel it must select
+EDGE_CASES = [((-128, 0), False, "i8"), ((127, -128), False, "i8"),
+              ((-129, 0), False, "wide"), ((0, 128), False, "wide"),
+              ((64, 64), False, "i8"),           # schoolbook never adds the limbs
+              ((-64, -64), True, "i8"), ((127, 0), True, "i8"),
+              ((64, 64), True, "wide"), ((-65, -64), True, "wide"),
+              ((-128, 0), True, "i8"), ((0, -129), True, "wide"),
+              ((1 << 30, 1 << 30), True, "wide")]
+
+
+@pytest.mark.parametrize("operand", ["a", "b"])
+@pytest.mark.parametrize("pair,karatsuba,route", EDGE_CASES)
+def test_route_selection_at_the_int8_edges(pair, karatsuba, route, operand):
+    limbs = [torch.zeros(s, dtype=torch.int32) for s in ((3, 5), (3, 5), (5, 4), (5, 4))]
+    at = 0 if operand == "a" else 2
+    limbs[at][1, 2], limbs[at + 1][1, 2] = pair
+    want = tkm8.KERNEL if route == "i8" else tkm8.WIDE_KERNEL
+    assert tkm8.select_route(*limbs, karatsuba=karatsuba) == want
+    assert tkm8.limbs_fit_int8(*limbs, karatsuba=karatsuba) == (route == "i8")
+
+
+def test_route_selection_of_empty_limbs():
+    z = torch.zeros((0, 3), dtype=torch.int32)
+    assert tkm8.select_route(z, z, z.T, z.T, karatsuba=True) == tkm8.KERNEL
+
+
+@pytest.mark.parametrize("karatsuba", [True, False])
+@pytest.mark.parametrize("shape", [(3, 70, 5), (1, 129, 2)])
+def test_cpu_limbs_take_the_plain_version(shape, karatsuba):
+    """On CPU tensors the dispatcher and the wide entry run
+    `karatsuba_matmul_plain` (no launch counted) and stay byte-equal to the
+    Pallas kernel in interpret mode, for int8-range and wider limbs; K
+    crosses the int8 kernel's K padding."""
+    m, k, n = shape
+    w = 7 if karatsuba else 8
+    for bound in (8000, 1 << 22):                # int8 limbs in both modes, wider
+        a, b = _ints((m, k), bound, 11), _ints((k, n), bound, 12)
+        ah, al = tquant.balanced_limbs(_t(a), w)
+        bh, bl = tquant.balanced_limbs(_t(b), w)
+        limbs = [x.numpy() for x in (ah, al, bh, bl)]
+        assert tkm8.limbs_fit_int8(ah, al, bh, bl, karatsuba=karatsuba) == (bound == 8000)
+        plain = tkm.karatsuba_matmul_plain(ah, al, bh, bl, karatsuba=karatsuba)
+        pallas = j_karatsuba(*(_pad(x, 8 if i < 2 else 16, 16) for i, x in enumerate(limbs)),
+                             karatsuba=karatsuba, block_m=8, block_n=16, block_k=16,
+                             interpret=True)
+        for entry in (tkm.karatsuba_matmul_kernel, tkm.karatsuba_matmul_wide):
+            got = entry(ah, al, bh, bl, karatsuba=karatsuba)
+            for g, p, q in zip(got, plain, pallas):
+                assert torch.equal(g, p)
+                assert np.array_equal(g.numpy(), np.asarray(q)[:m, :n])
+    assert tkm.LAUNCHES == {"karatsuba_matmul": 0}
+    assert tkm8.LAUNCHES == {"karatsuba_matmul_i8": 0}
+
+
+def test_int8_kernel_is_built_and_raises_off_the_cpu():
+    assert "karatsuba_matmul_i8" in build.SOURCES
+    assert (build.CSRC / "karatsuba_matmul_i8.cu").is_file()
+    a = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    b = torch.zeros((3, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tkm.karatsuba_matmul_wide(a, a, b, b)
+    assert tkm8.LAUNCHES == {"karatsuba_matmul_i8": 0}
