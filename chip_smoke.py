@@ -12,7 +12,13 @@ Phases, each fatal on failure:
                every bank filter and the paper's Fig. 9 table x six
                multipliers x two shapes, plus the 16-bit signed second pass
                of the two-pass dataflow, and every measurement variant of
-               `conv_pass_kcm`. The three matmul kernels: every
+               `conv_pass_kcm`. The two recurse kernels besides: every
+               method (mitchell_ecc1..3 too) at nbits 2, 4, 8 and 16 on
+               signed operands, coefficients with four non-zero digits
+               (+-255, +-170), zero and negative taps, every compiled tap
+               shape and the tiled ones, the persistent kernels equal to
+               the tiled kernels of the first design (variant 0, the C
+               entry given no plan). The three matmul kernels: every
                (num_ecc, case_split) of `mitchell_matmul`; both limb modes of
                `karatsuba_matmul_i8` (int8 limbs, their edges -128 / 127 and
                hi + lo = -128 included) and of the wide `karatsuba_matmul`
@@ -48,7 +54,9 @@ Phases, each fatal on failure:
                that computes the same sums, that call; the matmul kernels at
                the full-width shape; `conv_pass_kcm`'s measurement variants
                (the tiled kernel it replaced, ROM per tile or once, cp.async
-               or stage_window window) at both shapes, on [variant] lines.
+               or stage_window window) at both shapes, on [variant] lines;
+               the recurse kernels for every method beside the tiled kernel
+               of the first design (variant 0), on [variant] lines too.
 The line before the last is a JSON object naming the seven kernels with
 their numbers; the last line is the run's result and device.
 """
@@ -89,6 +97,8 @@ KCM_VARIANTS = {0: "tiled kernel (ROM and window per 32x16 tile)",
                 2: "persistent, ROM per tile, cp.async window",
                 3: "persistent, ROM once, stage_window",
                 4: "persistent, ROM once, cp.async window (= conv_pass_kcm)"}
+RECURSE_METHODS = METHODS + ("mitchell_ecc1", "mitchell_ecc3")
+RECURSE_PARITY = (((3, 37, 53), (2, 4, 8, 16)), ((2, 480, 640), (8, 16)))  # (shape, widths)
 # 5: as 4 without the tap products (the window's centre pixel out): the time
 # of the staging and the stores alone. Timed, not compared: its bytes differ.
 KCM_COPY_VARIANT = 5
@@ -136,12 +146,20 @@ def phase_build() -> None:
         f"({build.NVCC_FLAGS[1]})")
     for name, lib in libs.items():
         log_file = lib.parent / f"{name}.log"
-        entry = ""
-        for line in log_file.read_text().splitlines() if log_file.exists() else []:
+        text = log_file.read_text() if log_file.exists() else ""
+        names = demangle(text)
+        entry, spill = "", ""
+        for line in text.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else ""
-            elif "registers" in line or "spill" in line:
-                log(f"[build] {name}: {entry}: {line.strip()}")
+            elif "spill stores" in line:
+                stack = line.split("bytes stack frame")[0].strip()
+                stores = line.split("bytes spill stores")[0].split(",")[-1].strip()
+                spill = (", no spills" if stores == "0" else f", {stores} bytes of spill stores") \
+                    + ("" if stack == "0" else f", {stack} bytes stack frame")
+            elif "Used" in line and "registers" in line:
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                log(f"[build] {name}: {names.get(entry, entry)}: {regs} registers{spill}")
     # the int8 limb kernel must run on the tensor cores: IMMA in its SASS
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     if cuobjdump.is_file():
@@ -153,6 +171,20 @@ def phase_build() -> None:
         assert imma > 0, "karatsuba_matmul_i8 has no tensor-core instruction"
     else:
         log(f"[build] no {cuobjdump}: the SASS of karatsuba_matmul_i8 is not checked")
+
+
+def demangle(ptxas_log: str) -> dict[str, str]:
+    """Mangled entry names in a ptxas log -> c++filt's names (identity where
+    c++filt is missing)."""
+    names = sorted({line.split("'")[1] for line in ptxas_log.splitlines()
+                    if "Compiling entry function" in line and "'" in line})
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    return {m: d.split("(")[0].removeprefix("void ").replace("repro::", "")
+            for m, d in zip(names, out)}
 
 
 def noisy_frames(n: int, hw: tuple[int, int], percent: int, seed: int) -> np.ndarray:
@@ -177,6 +209,126 @@ def kcm_variant(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, shift: int
            rom.data_ptr(), rom.shape[1], out.data_ptr(), *x.shape, kh, kw, shift,
            POSTS.index(post), variant)
     return out
+
+
+def _method_args(method: str) -> tuple[int, int]:
+    from repro_torch.core.kcm import parse_method
+    from repro_torch.filters.conv import _METHOD_CODES
+    family, num_ecc = parse_method(method)
+    return _METHOD_CODES[family], num_ecc
+
+
+def recurse_tiled(x: torch.Tensor, taps, method: str, nbits: int, shift: int,
+                  post: str) -> torch.Tensor:
+    """conv_pass_recurse through the tiled kernel of the first design (the
+    C entry given no plan): measurement variant 0, not counted as a launch
+    of the port."""
+    import ctypes
+
+    from repro_torch.filters.conv import POSTS, _SIGNATURES
+    from repro_torch.kernels.build import launch
+    taps = np.asarray(taps, np.int64)
+    kh, kw = taps.shape
+    coeffs = np.ascontiguousarray(taps.astype(np.int32))
+    source, argtypes = _SIGNATURES["conv_pass_recurse"]
+    out = torch.empty_like(x)
+    launch(source, "conv_pass_recurse", argtypes, x.device, x.data_ptr(), coeffs.ctypes.data,
+           None, *_method_args(method), nbits, out.data_ptr(), *x.shape, kh, kw, shift,
+           POSTS.index(post))
+    return out
+
+
+def fused_tiled(x: torch.Tensor, row, col, method: str, nbits: int, nbits2: int,
+                shift: int, post: str) -> torch.Tensor:
+    """fused_separable_recurse through the tiled kernel of the first design
+    (the C entry given no plans): measurement variant 0, not counted as a
+    launch of the port."""
+    from repro_torch.filters.conv import POSTS, _SIGNATURES
+    from repro_torch.kernels.build import launch
+    row, col = (np.asarray(v, np.int64).reshape(-1) for v in (row, col))
+    rc, cc = (np.ascontiguousarray(v.astype(np.int32)) for v in (row, col))
+    source, argtypes = _SIGNATURES["fused_separable_recurse"]
+    out = torch.empty_like(x)
+    launch(source, "fused_separable_recurse", argtypes, x.device, x.data_ptr(),
+           rc.ctypes.data, cc.ctypes.data, None, None, *_method_args(method), nbits, nbits2,
+           out.data_ptr(), *x.shape, col.size, row.size, shift, POSTS.index(post))
+    return out
+
+
+def phase_recurse_parity(max_err: dict[str, int]) -> None:
+    """Both recurse kernels against their plain versions, and the persistent
+    design against the tiled kernels of the first design (variant 0), byte
+    for byte: every method,
+    mitchell_ecc1..3 included, at nbits 2, 4, 8 and 16 on signed operands
+    of the width; coefficients with four non-zero 2-bit digits (+-255,
+    +-170), zero and negative taps; every compiled tap shape and tiled ones
+    (2x3, 7x5; a 5-tap row with a 3-tap column for the fused kernel)."""
+    from repro_torch.filters import conv
+
+    failures: list[str] = []
+    checked = 0
+
+    def check(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+        nonlocal checked
+        checked += 1
+        check_equal(max_err, failures, kernel, got, want, what)
+
+    rng = np.random.default_rng(21)
+    edge = np.array([[255, -170, 0], [-255, 170, 1], [0, -1, 85]])
+    for shape, widths in RECURSE_PARITY:
+        for nbits in widths:
+            top = (1 << nbits) - 1
+            x = torch.from_numpy(rng.integers(-top, top + 1, shape).astype(np.int32)).cuda()
+            tapsets = {"edge": np.sign(edge) * (np.abs(edge) % (top + 1)),
+                       "5x5": rng.integers(-top, top + 1, (5, 5)) * (rng.random((5, 5)) < 0.8),
+                       "1x3": rng.integers(-top, top + 1, (1, 3)),
+                       "3x1": rng.integers(-top, top + 1, (3, 1)),
+                       "1x5": rng.integers(-top, top + 1, (1, 5)),
+                       "5x1": rng.integers(-top, top + 1, (5, 1)),
+                       "2x3": rng.integers(-top, top + 1, (2, 3)),
+                       "7x5": rng.integers(-top, top + 1, (7, 5))}
+            for method in RECURSE_METHODS:
+                if method.startswith("refmlm") and nbits not in (2, 4, 8, 16):
+                    continue
+                for name, taps in tapsets.items():
+                    kw_ = dict(shift=nbits // 2, post="clip")
+                    what = f"{name} {method} nbits={nbits} {shape}"
+                    got = conv.conv_pass_recurse(x, taps, method=method, nbits=nbits, **kw_)
+                    check("conv_pass_recurse", got,
+                          conv.conv_pass_recurse_plain(x, taps, method=method, nbits=nbits,
+                                                       **kw_), what)
+                    if conv.recurse_route(*taps.shape) == "persistent":
+                        check("conv_pass_recurse", recurse_tiled(x, taps, method, nbits, **kw_),
+                              got, f"variant 0 {what}")
+                # fused: rows at nbits, columns at nbits2, with pixels and
+                # row taps small enough that every row sum is below 2**nbits2
+                # (the column pass's operand contract)
+                for kh, kw in ((3, 3), (5, 5), (3, 5)):
+                    for nbits2 in sorted({nbits, 16}):
+                        pb = top if nbits2 > nbits else max(1, top // (2 * kw))
+                        rb = min(top, ((1 << nbits2) - 1) // (kw * pb))
+                        if rb < 1:
+                            continue
+                        xf = x.clamp(-pb, pb)
+                        row = rng.integers(-rb, rb + 1, kw)
+                        row[0] = rb                    # 85 = four non-zero digits at 8 bits
+                        col = np.array([255, -170, 0, 1, -85][:kh])
+                        col = np.sign(col) * (np.abs(col) % (1 << nbits2))
+                        kw_ = dict(shift=4, post="abs")
+                        what = f"{kh}x{kw} {method} nbits={nbits}/{nbits2} {shape}"
+                        rk = dict(method=method, nbits=nbits, nbits2=nbits2, **kw_)
+                        got = conv.fused_separable_recurse(xf, row, col, **rk)
+                        check("fused_separable_recurse", got,
+                              conv.fused_separable_recurse_plain(xf, row, col, **rk), what)
+                        if conv.recurse_route(kh, kw, fused=True) == "persistent":
+                            check("fused_separable_recurse",
+                                  fused_tiled(xf, row, col, method, nbits, nbits2, **kw_), got,
+                                  f"variant 0 {what}")
+    torch.cuda.synchronize()
+    log(f"[parity] {checked} recurse comparisons (plain, variant 0), max |err| "
+        f"{ {k: max_err[k] for k in ('conv_pass_recurse', 'fused_separable_recurse')} }")
+    if failures:
+        raise AssertionError("recurse kernels disagree:\n" + "\n".join(failures[:20]))
 
 
 def phase_parity(max_err: dict[str, int]) -> None:
@@ -352,6 +504,10 @@ def phase_main(device: torch.device) -> tuple[dict[str, int], torch.Tensor]:
         f"launches {launches}")
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    for name in FILTER_NAMES:      # the bank's recurse launches take the persistent kernels
+        spec = FILTER_BANK[name]
+        shape = (spec.sep_col.size, spec.sep_row.size) if spec.separable else spec.taps.shape
+        assert conv.recurse_route(*shape, fused=spec.separable) == "persistent", name
     return launches, torch.from_numpy(frames).to(device)
 
 
@@ -404,39 +560,81 @@ def time_ms(fn, runs: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+SM_CLOCK_HZ = 1.98e9            # the H100's highest SM clock
+
+
 def time_ms_batched(fn, calls: int = 10, runs: int = 5) -> float:
     """Median over `runs` of the CUDA-event time of `calls` back-to-back
-    calls, divided by `calls`: the device time of one call once the host
-    enqueues ahead of the card."""
-    fn()
+    calls, divided by `calls`: the device time of one call. Before each run
+    the card spins (torch.cuda._sleep) for at least twice the host time of
+    enqueueing the calls, measured on a first unheld batch, and at least
+    5 ms, so the start event and every call are queued before the card
+    reaches them and no host gap falls between the events."""
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    hold_s = max(0.005, 2 * host_s)
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_s * SM_CLOCK_HZ))
+        t0 = time.perf_counter()
         start.record()
         for _ in range(calls):
             fn()
         end.record()
+        if time.perf_counter() - t0 > hold_s:
+            log(f"[warn] a timed batch took longer to enqueue than the card's "
+                f"{hold_s * 1e3:.3f} ms hold: its time may hold host gaps")
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-# Integer operations of one tap as csrc/multipliers.cuh forms it, counted on
-# the INT32 lanes: 3 for the sign and the accumulate (|x|, the signed add)
-# plus the product: a ROM gather for kcm; one multiply for exact; for REFMLM
-# (nbits/2)**2 2x2 leaves of about 15 operations each (the digits, the
-# efmlm2 case split and correction, the shifted add).
+# Integer operations counted on the INT32 lanes. A kcm tap: |x|, the
+# gather, the sign and the accumulate.
 KCM_TAP_OPS = 4
+# What the persistent recurse kernels must do for a tap with a non-zero
+# product (csrc/multipliers.cuh's tap policies), the pixel-side split shared
+# by a tap column aside: 3 for the sign and the accumulate, plus the product
+# from the plan: exact one multiply; REFMLM 2 a non-zero 2x2 leaf (a byte
+# permute, a shifted add); Mitchell 10 (m, the leading power, the case split,
+# the zero mask); a Babic stage 7 (and the sign and accumulate per stage);
+# ODMA 41 (two Mitchell products whose four operands, leading ones and
+# mantissas are found per tap).
+RECURSE_OPS = {"exact": 1, "mitchell": 10, "stage": 7, "odma": 41, "leaf": 2}
+SIGN_ACC_OPS = 3
 
 
-def tap_ops(method: str, nbits: int) -> int:
-    if method == "exact":
-        return 3 + 1
-    if method == "refmlm":
-        return 3 + (nbits // 2) ** 2 * 15
-    raise ValueError(f"no operation count for {method!r}")
+def recurse_pixel_ops(method: str, taps, nbits: int) -> int:
+    """Operations a pixel of the recurse kernels does for these taps at
+    nbits: RECURSE_OPS from the taps' own plan (zero taps and zero digits
+    need nothing)."""
+    from repro_torch.filters.recurse_plan import recurse_plan
+    plan = recurse_plan(method, taps, nbits)
+    ops = 0
+    for tap in plan.taps:
+        if plan.family == "exact":
+            ops += (RECURSE_OPS["exact"] + SIGN_ACC_OPS) * (tap.coeff != 0)
+        elif tap.leaves:                                         # REFMLM, nbits >= 4
+            ops += RECURSE_OPS["leaf"] * len(tap.leaves) * (nbits // 2) + SIGN_ACC_OPS
+        elif plan.family == "mitchell_ecc":
+            ops += (RECURSE_OPS["stage"] + SIGN_ACC_OPS) * len(tap.stages)
+        elif plan.family == "odma":
+            ops += (RECURSE_OPS["odma"] + SIGN_ACC_OPS) * (tap.masks[0] != 0)
+        elif tap.stages:                                 # Mitchell; the nbits-2 base
+            ops += RECURSE_OPS["mitchell"] + SIGN_ACC_OPS
+    return ops
+
+
+def earlier_tap_ops(nbits: int) -> int:
+    """The first design's count of a REFMLM tap, kept for comparison:
+    3 + (nbits/2)**2 leaves of about 15 operations each (243 at 8 bits, 963
+    at 16)."""
+    return 3 + (nbits // 2) ** 2 * 15
 
 
 def phase_times(inputs: dict[tuple, torch.Tensor],
@@ -444,8 +642,10 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
     """{(kernel, method, shape): numbers} on the main-path and scale-phase
     frames. The direct kernels run the Fig. 9 table (Table 10's filter), the
     fused kernels gaussian3 at the main-path shape and gaussian5 at the
-    scale shape; refmlm for all four, and exact for the recurse kernels too
-    (kcm ROMs of refmlm and exact are the same table)."""
+    scale shape. kcm: refmlm (its ROMs are the same table for every exact
+    method). recurse: every method, beside the tiled kernel of the first
+    design (variant 0), all in this run; at the scale shape the plain
+    versions of the methods other than refmlm and exact run once."""
     import torch.nn.functional as F
 
     from repro_torch.filters import conv
@@ -454,6 +654,8 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
 
     results = {}
     fig9 = gaussian_kernel_3x3(1.0, 256).astype(np.int64)
+    library = ("torch.nn.functional.conv2d float32, TF32 off (the same integer sums, "
+               "all below 2**24)")
     for shape, fused_name in ((MAIN_SHAPE, "gaussian3"), (SCALE_SHAPE, "gaussian5")):
         x = inputs[shape]
         device = x.device
@@ -468,61 +670,79 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
         wsep = torch.from_numpy(np.outer(col, row).astype(np.float32))[None, None].to(device)
         direct_kw = dict(shift=8, post="clip")
         sep_kw = dict(shift=spec.shift, post=spec.post)
-        lib_direct = lambda: F.conv2d(xf, w9, padding=1)
-        lib_sep = lambda: F.conv2d(xf, wsep, padding=(col.size // 2, row.size // 2))
-        cases = [
-            ("conv_pass_kcm", "refmlm",
-             lambda: conv.conv_pass_kcm(x, rom9, 3, 3, **direct_kw),
-             lambda: conv.conv_pass_kcm_plain(x, rom9, 3, 3, **direct_kw),
-             rom9.numel() * 4, 9 * KCM_TAP_OPS, lib_direct),
-            ("fused_separable_kcm", "refmlm",
-             lambda: conv.fused_separable_kcm(x, rrom, crom, **sep_kw),
-             lambda: conv.fused_separable_kcm_plain(x, rrom, crom, **sep_kw),
-             (rrom.numel() + crom.numel()) * 4, (row.size + col.size) * KCM_TAP_OPS,
-             lib_sep),
-        ]
-        for method in ("refmlm", "exact"):
+        lib_ms = {"direct": time_ms(lambda: F.conv2d(xf, w9, padding=1), 20),
+                  "sep": time_ms(lambda: F.conv2d(xf, wsep, padding=(col.size // 2,
+                                                                     row.size // 2)), 20)}
+        pixels = x.numel()
+
+        def bound(coef_bytes: int, pixel_ops: int) -> dict:
+            bytes_ms = (pixels * 4 * 2 + coef_bytes) / HBM_BYTES_PER_S * 1e3
+            ops_ms = pixel_ops * pixels / int32_ops_per_s * 1e3
+            return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+        def record(row_: dict) -> None:
+            results[(row_["kernel"], row_["method"], tuple(shape))] = row_
+            log(json.dumps(row_))
+
+        plain_runs = 3 if big else 5
+        for name, kernel, plain, coef_bytes, pixel_ops, lib, filt in (
+                ("conv_pass_kcm", lambda: conv.conv_pass_kcm(x, rom9, 3, 3, **direct_kw),
+                 lambda: conv.conv_pass_kcm_plain(x, rom9, 3, 3, **direct_kw),
+                 rom9.numel() * 4, 9 * KCM_TAP_OPS, "direct", "fig9"),
+                ("fused_separable_kcm", lambda: conv.fused_separable_kcm(x, rrom, crom, **sep_kw),
+                 lambda: conv.fused_separable_kcm_plain(x, rrom, crom, **sep_kw),
+                 (rrom.numel() + crom.numel()) * 4, (row.size + col.size) * KCM_TAP_OPS,
+                 "sep", fused_name)):
+            record({"kernel": name, "shape": list(shape), "filter": filt, "method": "refmlm",
+                    "kernel_ms": time_ms(kernel, 20),
+                    "kernel_device_ms": time_ms_batched(kernel),
+                    "plain_ms": time_ms(plain, plain_runs, warmup=1), "plain_runs": plain_runs,
+                    **bound(coef_bytes, pixel_ops),
+                    "library_ms": lib_ms[lib], "library": library})
+        for method in METHODS:
+            main_method = method in ("refmlm", "exact")
+            runs = plain_runs if not big else 1
+            warm = 1 if main_method or not big else 0
             rk = dict(method=method, nbits=8, **direct_kw)
             fk = dict(method=method, nbits=8, nbits2=16, **sep_kw)
-            cases += [
-                ("conv_pass_recurse", method,
-                 lambda rk=rk: conv.conv_pass_recurse(x, fig9, **rk),
-                 lambda rk=rk: conv.conv_pass_recurse_plain(x, fig9, **rk),
-                 fig9.size * 4, 9 * tap_ops(method, 8), lib_direct),
-                ("fused_separable_recurse", method,
-                 lambda fk=fk: conv.fused_separable_recurse(x, row, col, **fk),
-                 lambda fk=fk: conv.fused_separable_recurse_plain(x, row, col, **fk),
-                 (row.size + col.size) * 4,
-                 row.size * tap_ops(method, 8) + col.size * tap_ops(method, 16), lib_sep),
-            ]
-        for name, method, kernel, plain, coef_bytes, pixel_ops, library in cases:
-            pixels = x.numel()
-            nbytes = pixels * 4 * 2 + coef_bytes     # int32 in + int32 out
-            ops = pixel_ops * pixels
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / int32_ops_per_s * 1e3
-            plain_runs = 1 if big and "recurse" in name else (3 if big else 5)
-            row_ = {
-                "kernel": name, "shape": list(shape),
-                "filter": "fig9" if name.startswith("conv") else fused_name,
-                "method": method,
-                "kernel_ms": time_ms(kernel, 20),
-                "kernel_device_ms": time_ms_batched(kernel),
-                "plain_ms": time_ms(plain, plain_runs, warmup=1),
-                "plain_runs": plain_runs,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": time_ms(library, 20),
-                "library": "torch.nn.functional.conv2d float32, TF32 off "
-                           "(the same integer sums, all below 2**24)",
-            }
-            results[(name, method, tuple(shape))] = row_
-            log(json.dumps(row_))
+            ops_direct = recurse_pixel_ops(method, fig9, 8)
+            ops_fused = recurse_pixel_ops(method, row, 8) + recurse_pixel_ops(method, col, 16)
+            cases = (
+                ("conv_pass_recurse", "fig9",
+                 lambda: conv.conv_pass_recurse(x, fig9, **rk),
+                 lambda: conv.conv_pass_recurse_plain(x, fig9, **rk),
+                 lambda: recurse_tiled(x, fig9, method, 8, **direct_kw),
+                 fig9.size * 4, ops_direct, 9 * earlier_tap_ops(8), "direct"),
+                ("fused_separable_recurse", fused_name,
+                 lambda: conv.fused_separable_recurse(x, row, col, **fk),
+                 lambda: conv.fused_separable_recurse_plain(x, row, col, **fk),
+                 lambda: fused_tiled(x, row, col, method, 8, 16, **sep_kw),
+                 (row.size + col.size) * 4, ops_fused,
+                 row.size * earlier_tap_ops(8) + col.size * earlier_tap_ops(16), "sep"))
+            for name, filt, kernel, plain, tiled, coef_bytes, pixel_ops, earlier, lib in cases:
+                row_ = {"kernel": name, "shape": list(shape), "filter": filt, "method": method,
+                        "kernel_ms": time_ms(kernel, 20),
+                        "kernel_device_ms": time_ms_batched(kernel),
+                        "variant0_ms": time_ms(tiled, 20),
+                        "variant0_device_ms": time_ms_batched(tiled)}
+                if method in ("refmlm", "refmlm_nc"):
+                    row_["earlier_ops_per_pixel"] = earlier
+                row_.update({"plain_ms": time_ms(plain, runs, warmup=warm), "plain_runs": runs,
+                             "ops_per_pixel": pixel_ops, **bound(coef_bytes, pixel_ops),
+                             "library_ms": lib_ms[lib],
+                             "library": library + ("" if method in ("exact", "refmlm") else
+                                                   "; exact products, not this method's")})
+                record(row_)
+                log(f"[variant] {name} 0 (tiled kernel, the first design) {filt} {method} "
+                    f"{shape}: {row_['variant0_ms']} ms a call, {row_['variant0_device_ms']} "
+                    f"ms device time; the entry point {row_['kernel_ms']} / "
+                    f"{row_['kernel_device_ms']} ms")
         for v, what in KCM_VARIANTS.items():
             call = lambda v=v: kcm_variant(x, rom9, 3, 3, 8, "clip", v)
             ms, device_ms = time_ms(call, 20), time_ms_batched(call)
             log(f"[variant] conv_pass_kcm {v} ({what}) fig9 refmlm {shape}: {ms} ms "
-                f"a call, {device_ms} ms device time (10 calls back to back)")
+                f"a call, {device_ms} ms device time (10 calls, queued while the card is held)")
         call = lambda: kcm_variant(x, rom9, 3, 3, 0, "none", KCM_COPY_VARIANT)
         assert torch.equal(call(), x), "the staging variant does not copy its input"
         log(f"[variant] conv_pass_kcm {KCM_COPY_VARIANT} (as 4, window centre out, no "
@@ -910,6 +1130,7 @@ def main() -> int:
     from repro_torch.filters.conv import KERNELS
     max_err = dict.fromkeys(KERNELS + MATMUL_KERNELS, 0)
     phase_parity(max_err)
+    phase_recurse_parity(max_err)
     phase_matmul_parity(max_err, device)
     launches, main_frames = phase_main(device)
     mm_launches, (x, w) = phase_matmul_main(device)

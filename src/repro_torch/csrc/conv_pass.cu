@@ -14,8 +14,8 @@
 // What bounds it on an H100: the kcm variant moves about 8 bytes of HBM per
 // pixel (int32 in, int32 out) and does kh*kw shared-memory gathers, so it is
 // bound by memory bandwidth; the recurse variant is bound by integer
-// operations per tap (16 2x2 base products per tap for 8-bit REFMLM, 64 at
-// 16 bits).
+// operations: per tap, its pixel-side work (the coefficient side comes from
+// a host plan), e.g. 2 operations a non-zero 2x2 leaf for REFMLM.
 //
 // conv_pass_kcm: a persistent grid (as many 128-thread blocks as the SMs
 // hold at once) walks over 64 x 32 output tiles. Each block stages an 8-bit
@@ -31,28 +31,35 @@
 // read from shared memory kw times (once per tap column) and reused over
 // the kh tap rows from registers, not read kh * kw times.
 //
-// conv_pass_recurse: grid = (tiles_x, tiles_y, N), one output pixel per
-// thread on a 32 x 16 tile; the block stages its (16 + kh - 1) x (32 + kw -
-// 1) window in shared memory (stage_window) before computing.
+// conv_pass_recurse: the same persistent grid, cp.async window and 16 rows
+// a thread, compiled per bank tap shape and per tap policy (multipliers.cuh).
+// Every coefficient-only part of a product is a launch constant, worked out
+// once on the host (repro_torch.filters.recurse_plan): REFMLM's non-zero
+// coefficient digits with the packed truth table of each 2x2 leaf, the
+// Mitchell family's (k2, x2) per stage. A window element is split once per
+// tap column (its digits as byte selectors, or its leading one and
+// mantissa) and reused for the kh tap rows; a non-zero REFMLM leaf is then
+// one byte permute and one shifted add, and zero digits cost nothing.
 //
 // Tap shapes other than the bank's (3x3, 5x5, 1x3, 3x1, 1x5, 5x1) run the
-// tiled kcm kernel, which stages like conv_pass_recurse below.
+// tiled kernels: one output pixel a thread on a 32 x 16 tile, the window
+// staged for every tile with stage_window (the first design). The recurse
+// entry runs its tiled kernel when it is given no plan, at any shape.
 //
 // conv_pass_kcm_variant runs the 3x3 kcm pass through the design above with
 // its parts switched one at a time (ROM once or per tile, cp.async window
 // or stage_window, no taps), or through the tiled kernel, so that one run
-// can time where the difference lies; no entry point of the port calls it.
-#include <algorithm>
-#include <mutex>
+// can time where the difference lies. No entry point of the port calls it.
 #include <tuple>
 
-#include "multipliers.cuh"
+#include "staging.cuh"
 
 namespace repro {
 
 constexpr int kTileW = 32;
 constexpr int kTileH = 16;
 constexpr size_t kSmemRomBytes = 32 * 1024;
+constexpr int kPlanTaps = 25;                        // taps of the largest bank shape, 5x5
 
 // The tiled kcm kernel: one output pixel a thread on a 32 x 16 tile, the
 // ROM stack and the window staged for every tile. It runs the tap shapes
@@ -87,67 +94,6 @@ conv_pass_kcm_tiled_kernel(const int32_t* __restrict__ x, const int32_t* __restr
   out[blockIdx.z * plane + static_cast<size_t>(oy) * w + ox] = apply_post(acc, post, shift);
 }
 
-constexpr int kKcmTileW = 64;
-constexpr int kKcmRows = 16;                         // output rows a thread
-constexpr int kKcmGroups = 2;                        // threads per column
-constexpr int kKcmTileH = kKcmRows * kKcmGroups;
-constexpr int kKcmThreads = kKcmTileW * kKcmGroups;
-
-// Window of a kcm tile: rows from y0 - kh/2, `cols` (a multiple of 4)
-// columns from x0 - pad_l, pad_l = kw/2 rounded up to 4 so that the window
-// starts 16-byte aligned when the rows do.
-struct KcmWindow {
-  int pad_l, cols, rows;
-  __host__ __device__ KcmWindow(int kh, int kw)
-      : pad_l((kw / 2 + 3) & ~3),
-        cols((((kw / 2 + 3) & ~3) + kKcmTileW + kw - 1 - kw / 2 + 3) & ~3),
-        rows(kKcmTileH + kh - 1) {}
-  __host__ __device__ int elems() const { return rows * cols; }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// cp.async of 16 or 4 bytes; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-// Issue the copies of an (rows x cols) window whose top-left pixel is
-// (y0, xs) into `win`, zeros outside the image: a warp a row, a lane a
-// 16-byte chunk (vec: w % 4 == 0, xs % 4 == 0, img 16-byte aligned) or an
-// element.
-__device__ __forceinline__ void issue_window(int32_t* win, const int32_t* __restrict__ img,
-                                             int h, int w, int y0, int xs, int rows,
-                                             int cols, bool vec) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int lane = tid % 32, nwarps = blockDim.x * blockDim.y / 32;
-  for (int r = tid / 32; r < rows; r += nwarps) {
-    const int y = y0 + r;
-    const bool row_in = y >= 0 && y < h;
-    const int32_t* src = img + static_cast<size_t>(row_in ? y : 0) * w;
-    int32_t* dst = win + r * cols;
-    if (vec) {
-      for (int q = lane; q < cols / 4; q += 32) {
-        const int xq = xs + 4 * q;
-        const bool in = row_in && xq >= 0 && xq < w;
-        cp_async16(dst + 4 * q, in ? src + xq : img, in ? 16 : 0);
-      }
-    } else {
-      for (int c = lane; c < cols; c += 32) {
-        const int xc = xs + c;
-        const bool in = row_in && xc >= 0 && xc < w;
-        cp_async4(dst + c, in ? src + xc : img, in ? 4 : 0);
-      }
-    }
-  }
-}
-
 // The kKcmRows sums of one thread for a KH x KW tap shape: window row wr
 // (from the thread's first row) holds tap row wr - i of output row i, so
 // each element is read once per tap column and reused for every tap row
@@ -172,90 +118,41 @@ __device__ __forceinline__ void kcm_rows(uint32_t (&acc)[kKcmRows], const int32_
 }
 
 // KH x KW: the tap shape; kRomInSmem: the ROM stack is copied to shared
-// memory (8-bit ROMs); kRomEachTile: copied again for every tile (a measurement variant);
-// kAsync: the next tile's window is copied with cp.async during this one's
-// compute, else each tile stages its window with stage_window (a variant);
-// kTaps false: no tap products, the output is the window's centre pixel
-// (a variant that times the staging and the stores alone).
+// memory (8-bit ROMs); kRomEachTile: copied again for every tile (a
+// measurement variant); kAsync: the next tile's window is copied with
+// cp.async during this one's compute, else each tile stages its window with
+// stage_window (a variant); kTaps false: no tap products, the output is the
+// window's centre pixel (a variant that times the staging and the stores
+// alone).
 template <int KH, int KW, bool kRomInSmem, bool kRomEachTile, bool kAsync, bool kTaps>
 __global__ void __launch_bounds__(kKcmThreads)
 conv_pass_kcm_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ rom,
                      int rom_len, int32_t* __restrict__ out, int n, int h, int w,
                      int shift, int post, int vec) {
   extern __shared__ __align__(16) int32_t smem[];
-  constexpr int kh = KH, kw = KW;
-  const KcmWindow win_shape(kh, kw);
-  const int cols = win_shape.cols, rows = win_shape.rows;
-  const int win_elems = win_shape.elems();
-  int32_t* srom = smem + (kAsync ? 2 : 1) * win_elems;
+  const KcmWindow ws(KH, KW);
+  int32_t* srom = smem + (kAsync ? 2 : 1) * ws.elems();
   const int32_t* table = kRomInSmem ? srom : rom;
-  const int rom_count = kh * kw * rom_len;
+  const int rom_count = KH * KW * rom_len;
   if constexpr (kRomInSmem && !kRomEachTile) stage_rom(srom, rom, rom_count);
-
-  const size_t plane = static_cast<size_t>(h) * w;
-  const int tiles_x = (w + kKcmTileW - 1) / kKcmTileW;
-  const int tiles_y = (h + kKcmTileH - 1) / kKcmTileH;
-  const long long tiles = static_cast<long long>(n) * tiles_x * tiles_y;
-  const long long stride = gridDim.x;
-  auto origin = [&](long long t, int& img, int& y0, int& x0) {
-    x0 = static_cast<int>(t % tiles_x) * kKcmTileW;
-    const long long rest = t / tiles_x;
-    y0 = static_cast<int>(rest % tiles_y) * kKcmTileH;
-    img = static_cast<int>(rest / tiles_y);
-  };
-
-  long long t = blockIdx.x;
-  int buf = 0;
-  if constexpr (kAsync) {
-    if (t < tiles) {
-      int img, y0, x0;
-      origin(t, img, y0, x0);
-      issue_window(smem, x + img * plane, h, w, y0 - kh / 2, x0 - win_shape.pad_l,
-                   rows, cols, vec);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
   const int tx = threadIdx.x, r0 = threadIdx.y * kKcmRows;
-  const int c = tx + win_shape.pad_l - kw / 2;       // window column of tap column 0
-  for (; t < tiles; t += stride) {
-    int img, y0, x0;
-    origin(t, img, y0, x0);
-    const int32_t* win = smem + buf * win_elems;
-    if constexpr (kAsync) {
-      if (t + stride < tiles) {
-        int nimg, ny0, nx0;
-        origin(t + stride, nimg, ny0, nx0);
-        issue_window(smem + (buf ^ 1) * win_elems, x + nimg * plane, h, w, ny0 - kh / 2,
-                     nx0 - win_shape.pad_l, rows, cols, vec);
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      stage_window(smem, x + img * plane, h, w, y0 - kh / 2, x0 - win_shape.pad_l, rows, cols);
+  const int c = tx + ws.pad_l - KW / 2;              // window column of tap column 0
+  const size_t plane = static_cast<size_t>(h) * w;
+  persistent_tiles<KH, KW, kAsync>(x, n, h, w, vec, smem,
+                                   [&](const int32_t* win, int img, int y0, int x0) {
+    if constexpr (kRomInSmem && kRomEachTile) {
+      stage_rom(srom, rom, rom_count);
+      __syncthreads();
     }
-    if constexpr (kRomInSmem && kRomEachTile) stage_rom(srom, rom, rom_count);
-    __syncthreads();
-
     uint32_t acc[kKcmRows] = {};
     if constexpr (!kTaps) {           // a variant: the window's centre pixel, no taps
 #pragma unroll
-      for (int i = 0; i < kKcmRows; ++i) acc[i] = win[(r0 + i + kh / 2) * cols + c + kw / 2];
+      for (int i = 0; i < kKcmRows; ++i) acc[i] = win[(r0 + i + KH / 2) * ws.cols + c + KW / 2];
     } else {
-      kcm_rows<KH, KW>(acc, win + r0 * cols + c, cols, table, rom_len);
+      kcm_rows<KH, KW>(acc, win + r0 * ws.cols + c, ws.cols, table, rom_len);
     }
-    const int ox = x0 + tx;
-    if (ox < w) {
-      int32_t* dst = out + img * plane + ox;
-#pragma unroll
-      for (int i = 0; i < kKcmRows; ++i) {
-        const int oy = y0 + r0 + i;
-        if (oy < h) dst[static_cast<size_t>(oy) * w] = apply_post(acc[i], post, shift);
-      }
-    }
-    __syncthreads();
-    if constexpr (kAsync) buf ^= 1;
-  }
-  if constexpr (kAsync) asm volatile("cp.async.wait_group 0;\n" ::);
+    store_rows(out + img * plane, acc, h, w, x0 + tx, y0 + r0, shift, post);
+  });
 }
 
 template <int kMethod>
@@ -310,41 +207,10 @@ int launch_kcm(const int32_t* x, const int32_t* rom, int rom_len, int32_t* out, 
   const size_t rom_bytes =
       kRomInSmem ? static_cast<size_t>(KH) * KW * rom_len * sizeof(int32_t) : 0;
   const size_t smem = (kAsync ? 2 : 1) * win.elems() * sizeof(int32_t) + rom_bytes;
-  auto kernel = conv_pass_kcm_kernel<KH, KW, kRomInSmem, kRomEachTile, kAsync, kTaps>;
-  // The shared-memory limit and the resident block count, queried once per
-  // device and size: the queries cost more host time than a small launch.
-  static std::mutex mu;
-  static int cached_dev = -1, cached_blocks = 0;
-  static size_t cached_smem = 0;
-  int dev = 0, resident = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess && (dev != cached_dev || smem != cached_smem)) {
-      int sms = 0, per_sm = 0;
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kKcmThreads, smem);
-      if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
-      if (err == cudaSuccess) {
-        cached_dev = dev;
-        cached_smem = smem;
-        cached_blocks = per_sm * sms;
-      }
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    resident = cached_blocks;
-  }
-  const long long tiles = static_cast<long long>(n) * ((w + kKcmTileW - 1) / kKcmTileW) *
-                          ((h + kKcmTileH - 1) / kKcmTileH);
-  const int blocks = static_cast<int>(std::min<long long>(tiles, resident));
   const int vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  kernel<<<blocks, dim3(kKcmTileW, kKcmGroups), smem, stream>>>(
-      x, rom, rom_len, out, n, h, w, shift, post, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(conv_pass_kcm_kernel<KH, KW, kRomInSmem, kRomEachTile, kAsync, kTaps>,
+                           smem, stream, n, h, w, x, rom, rom_len, out, n, h, w, shift, post,
+                           vec);
 }
 
 template <bool kRomInSmem>
@@ -376,6 +242,101 @@ int launch_kcm_shape(const int32_t* x, const int32_t* rom, int rom_len, int32_t*
   REPRO_KCM_SHAPE(5, 1)
 #undef REPRO_KCM_SHAPE
   return launch_tiled<kRomInSmem>(x, rom, rom_len, out, n, h, w, kh, kw, shift, post, stream);
+}
+
+// conv_pass_recurse on the bank's tap shapes: the staging of the persistent
+// kcm kernel (persistent_tiles, staging.cuh), 16 rows a thread, and every
+// product from the host plan by the tap policy `Taps` (multipliers.cuh).
+template <int KH, int KW, class Taps>
+__global__ void __launch_bounds__(kKcmThreads)
+conv_pass_recurse_tiles_kernel(const int32_t* __restrict__ x,
+                               const __grid_constant__ TapPlan<kPlanTaps> plan, uint32_t mask,
+                               int stages, int32_t* __restrict__ out, int n, int h, int w,
+                               int shift, int post, int vec) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const KcmWindow ws(KH, KW);
+  const int tx = threadIdx.x, r0 = threadIdx.y * kKcmRows;
+  const int c = tx + ws.pad_l - KW / 2;              // window column of tap column 0
+  const size_t plane = static_cast<size_t>(h) * w;
+  persistent_tiles<KH, KW>(x, n, h, w, vec, smem,
+                           [&](const int32_t* win, int img, int y0, int x0) {
+    uint32_t acc[kKcmRows] = {};
+    recurse_rows<KH, KW, kKcmRows, Taps>(acc, win + r0 * ws.cols + c, ws.cols, plan, mask,
+                                         stages);
+    store_rows(out + img * plane, acc, h, w, x0 + tx, y0 + r0, shift, post);
+  });
+}
+
+// The arguments of one recurse pass, as the C entry points take them.
+struct RecursePass {
+  const int32_t* x;
+  const int32_t* taps;
+  const int32_t* plan;
+  int method, num_ecc, nbits;
+  int32_t* out;
+  int n, h, w, kh, kw, shift, post;
+  cudaStream_t stream;
+};
+
+template <int KH, int KW, class Taps>
+int launch_recurse_tiles(const RecursePass& a, const TapPlan<kPlanTaps>& plan, int stages) {
+  const size_t smem = 2 * KcmWindow(KH, KW).elems() * sizeof(int32_t);
+  const uint32_t mask = static_cast<uint32_t>((1ull << a.nbits) - 1);
+  const int vec = a.w % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  return launch_persistent(conv_pass_recurse_tiles_kernel<KH, KW, Taps>, smem, a.stream,
+                           a.n, a.h, a.w, a.x, plan, mask, stages, a.out, a.n, a.h, a.w,
+                           a.shift, a.post, vec);
+}
+
+template <int KH, int KW>
+int recurse_shape(const RecursePass& a, const TapPlan<kPlanTaps>& plan, int stages) {
+  return method_taps(a.method, a.nbits, [&](auto tag) {
+    return launch_recurse_tiles<KH, KW, typename decltype(tag)::type>(a, plan, stages);
+  });
+}
+
+// The persistent kernel, for the tap shapes it is compiled for; any other
+// shape is refused.
+int recurse_persistent(const RecursePass& a) {
+  TapPlan<kPlanTaps> plan;
+  int stages = 0;
+  if (!load_plan(plan, stages, a.plan, a.kh * a.kw))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_RECURSE_SHAPE(KH, KW) \
+  if (a.kh == KH && a.kw == KW) return recurse_shape<KH, KW>(a, plan, stages);
+  REPRO_RECURSE_SHAPE(3, 3)
+  REPRO_RECURSE_SHAPE(5, 5)
+  REPRO_RECURSE_SHAPE(1, 3)
+  REPRO_RECURSE_SHAPE(3, 1)
+  REPRO_RECURSE_SHAPE(1, 5)
+  REPRO_RECURSE_SHAPE(5, 1)
+#undef REPRO_RECURSE_SHAPE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tiled recurse kernel (the first design): any shape.
+int recurse_tiled(const RecursePass& a) {
+  Coeffs coeffs{};
+  for (int i = 0; i < a.kh * a.kw; ++i) coeffs.v[i] = a.taps[i];
+  const size_t smem =
+      static_cast<size_t>(kTileH + a.kh - 1) * (kTileW + a.kw - 1) * sizeof(int32_t);
+  const dim3 grid = pass_grid(a.n, a.h, a.w);
+#define REPRO_TILED(M)                                                                  \
+  case M:                                                                               \
+    launch_recurse<M>(grid, smem, a.stream, a.x, coeffs, a.nbits, a.num_ecc, a.out, a.h, \
+                      a.w, a.kh, a.kw, a.shift, a.post);                                \
+    break;
+  switch (a.method) {
+    REPRO_TILED(kExact)
+    REPRO_TILED(kRefmlm)
+    REPRO_TILED(kRefmlmNc)
+    REPRO_TILED(kMitchell)
+    REPRO_TILED(kMitchellEcc)
+    REPRO_TILED(kOdma)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_TILED
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro
@@ -420,26 +381,21 @@ extern "C" int conv_pass_kcm_variant(const int32_t* x, const int32_t* rom, int r
   }
 }
 
-// taps: host (kh*kw) int32 coefficient table, passed to the kernel by value.
-// method: repro::Method; num_ecc is read by kMitchellEcc only.
-extern "C" int conv_pass_recurse(const int32_t* x, const int32_t* taps, int method,
-                                 int num_ecc, int nbits, int32_t* out, int n, int h,
-                                 int w, int kh, int kw, int shift, int post,
+// taps: host (kh*kw) int32 coefficient table; plan: host (kh*kw,
+// kPlanWords) int32 plan words (repro_torch.filters.recurse_plan.plan_words)
+// or null. With a plan the persistent kernel runs, for the tap shapes it is
+// compiled for (repro_torch.filters.conv.recurse_route says which); with
+// none the tiled kernel of the first design, for any shape. method:
+// repro::Method; num_ecc is read by the tiled kMitchellEcc only (the plan
+// holds the stages).
+extern "C" int conv_pass_recurse(const int32_t* x, const int32_t* taps, const int32_t* plan,
+                                 int method, int num_ecc, int nbits, int32_t* out, int n,
+                                 int h, int w, int kh, int kw, int shift, int post,
                                  cudaStream_t stream) {
-  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK)
+  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK || n < 1 || h < 1 || w < 1 || nbits < 1 ||
+      nbits > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  Coeffs coeffs{};
-  for (int i = 0; i < kh * kw; ++i) coeffs.v[i] = taps[i];
-  const size_t smem = static_cast<size_t>(kTileH + kh - 1) * (kTileW + kw - 1) * sizeof(int32_t);
-  const dim3 grid = pass_grid(n, h, w);
-  switch (method) {
-    case kExact: launch_recurse<kExact>(grid, smem, stream, x, coeffs, nbits, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kRefmlm: launch_recurse<kRefmlm>(grid, smem, stream, x, coeffs, nbits, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kRefmlmNc: launch_recurse<kRefmlmNc>(grid, smem, stream, x, coeffs, nbits, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kMitchell: launch_recurse<kMitchell>(grid, smem, stream, x, coeffs, nbits, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kMitchellEcc: launch_recurse<kMitchellEcc>(grid, smem, stream, x, coeffs, nbits, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kOdma: launch_recurse<kOdma>(grid, smem, stream, x, coeffs, nbits, num_ecc, out, h, w, kh, kw, shift, post); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const RecursePass a{x, taps, plan, method, num_ecc, nbits, out, n, h, w, kh, kw,
+                      shift, post, stream};
+  return plan == nullptr ? recurse_tiled(a) : recurse_persistent(a);
 }

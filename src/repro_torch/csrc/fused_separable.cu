@@ -16,19 +16,33 @@
 // pixel (int32 in, int32 out) -- the row-pass intermediate never leaves the
 // SM -- so it is bound by memory bandwidth, with the column pass's gathers
 // from the 16-bit ROMs served by L2; the recurse variant is bound by integer
-// operations per tap (the column pass runs REFMLM at 16 bits: 64 2x2 base
-// products per tap).
+// operations per tap (the column pass runs at 16 bits: up to 64 2x2 leaves
+// a REFMLM tap, of which the plan keeps only the non-zero digits' ones).
 //
-// Design: grid = (tiles_x, tiles_y, N) over 32 x 16 output tiles, one output
-// pixel per thread. The block stages its (16 + kh - 1) x (32 + kw - 1) input
-// window in shared memory (zeros outside the image), computes the row pass
-// for its 16 rows plus kh - 1 halo rows into an int32 band in shared memory,
-// synchronises, then runs the column pass and the epilogue. Band rows
-// outside the image are 0, exactly what the reference's zero-padded input
-// gives. An 8-bit ROM (<= 16 KB) is staged in shared memory; a 16-bit ROM
-// (65,536 entries per tap, too large for the 227 KB of shared memory) is
-// read from global memory through the read-only path and stays in L2.
-#include "multipliers.cuh"
+// fused_separable_kcm: grid = (tiles_x, tiles_y, N) over 32 x 16 output
+// tiles, one output pixel per thread. The block stages its (16 + kh - 1) x
+// (32 + kw - 1) input window in shared memory (zeros outside the image),
+// computes the row pass for its 16 rows plus kh - 1 halo rows into an int32
+// band in shared memory, synchronises, then runs the column pass and the
+// epilogue. Band rows outside the image are 0, exactly what the reference's
+// zero-padded input gives. An 8-bit ROM (<= 16 KB) is staged in shared
+// memory; a 16-bit ROM (65,536 entries per tap, too large for the 227 KB of
+// shared memory) is read from global memory through the read-only path and
+// stays in L2. fused_separable_recurse runs the same design (the first
+// design) for tap shapes other than 3x3 and 5x5, and whenever its entry is
+// given no plans.
+//
+// fused_separable_recurse at 3x3 and 5x5 taps (the bank's): the persistent
+// grid and double-buffered cp.async window of staging.cuh over 64 x 32
+// tiles. The block's 128 threads compute the row pass for the tile's 32 +
+// kh - 1 band rows into shared memory, a thread half the band rows of one
+// column (no divide per element); after a barrier each thread runs the
+// column pass for 16 rows of its column, each band element split once and
+// reused for the kh tap rows from registers. Both passes take every
+// coefficient-only part of a product from a host plan
+// (repro_torch.filters.recurse_plan) through the tap policies of
+// multipliers.cuh, compiled per shape and per policy pair.
+#include "staging.cuh"
 
 namespace repro {
 
@@ -149,6 +163,139 @@ void launch_recurse(dim3 grid, size_t smem, cudaStream_t stream, const int32_t* 
       x, row, col, nbits, nbits2, num_ecc, out, h, w, kh, kw, shift, post);
 }
 
+constexpr int kSepTaps = 5;                 // taps of a pass of the largest bank shape
+__host__ __device__ constexpr int band_rows(int kh) { return kKcmTileH + kh - 1; }
+
+// fused_separable_recurse on the bank's tap shapes (3x3, 5x5); the row pass
+// by RowTaps at nbits, the column pass by ColTaps at nbits2.
+template <int KH, int KW, class RowTaps, class ColTaps>
+__global__ void __launch_bounds__(kKcmThreads)
+fused_separable_recurse_tiles_kernel(const int32_t* __restrict__ x,
+                                     const __grid_constant__ TapPlan<kSepTaps> row,
+                                     const __grid_constant__ TapPlan<kSepTaps> col,
+                                     uint32_t mask, uint32_t mask2, int row_stages,
+                                     int col_stages, int32_t* __restrict__ out, int n, int h,
+                                     int w, int shift, int post, int vec) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const KcmWindow ws(KH, KW);
+  int32_t* band = smem + 2 * ws.elems();
+  const int tx = threadIdx.x, r0 = threadIdx.y * kKcmRows;
+  const int c = tx + ws.pad_l - KW / 2;              // window column of tap column 0
+  const size_t plane = static_cast<size_t>(h) * w;
+  persistent_tiles<KH, KW>(x, n, h, w, vec, smem,
+                           [&](const int32_t* win, int img, int y0, int x0) {
+    // band row r = image row y0 - KH/2 + r; rows outside the image read a
+    // zero window row, and every multiplier gives 0 on it. A staged policy
+    // takes half the rows a thread group in chunks (one stage loop for
+    // many rows); the others a row at a time in a loop, which keeps the
+    // code small (faster on the H100, PERF.md).
+    if constexpr (RowTaps::kStaged) {
+      constexpr int kHalf = band_rows(KH) / kKcmGroups;
+      const int b0 = threadIdx.y * kHalf;
+      uint32_t sums[kHalf] = {};
+      recurse_rows<1, KW, kHalf, RowTaps>(sums, win + b0 * ws.cols + c, ws.cols, row, mask,
+                                          row_stages);
+#pragma unroll
+      for (int r = 0; r < kHalf; ++r)
+        band[(b0 + r) * kKcmTileW + tx] = static_cast<int32_t>(sums[r]);
+    } else {
+#pragma unroll 1
+      for (int r = threadIdx.y; r < band_rows(KH); r += kKcmGroups) {
+        uint32_t sum[1] = {0u};
+        recurse_rows<1, KW, 1, RowTaps>(sum, win + r * ws.cols + c, ws.cols, row, mask,
+                                        row_stages);
+        band[r * kKcmTileW + tx] = static_cast<int32_t>(sum[0]);
+      }
+    }
+    __syncthreads();
+    uint32_t acc[kKcmRows] = {};
+    recurse_rows<KH, 1, kKcmRows, ColTaps>(acc, band + r0 * kKcmTileW + tx, kKcmTileW, col,
+                                           mask2, col_stages);
+    store_rows(out + img * plane, acc, h, w, x0 + tx, y0 + r0, shift, post);
+  });
+}
+
+// The arguments of one fused recurse pass, as the C entry points take them.
+struct FusedPass {
+  const int32_t* x;
+  const int32_t* row;
+  const int32_t* col;
+  const int32_t* row_plan;
+  const int32_t* col_plan;
+  int method, num_ecc, nbits, nbits2;
+  int32_t* out;
+  int n, h, w, kh, kw, shift, post;
+  cudaStream_t stream;
+};
+
+struct FusedPlans {
+  TapPlan<kSepTaps> row, col;
+  int row_stages, col_stages;
+};
+
+template <int KH, int KW, class RowTaps, class ColTaps>
+int launch_fused_tiles(const FusedPass& a, const FusedPlans& p) {
+  const size_t smem =
+      (2 * KcmWindow(KH, KW).elems() + band_rows(KH) * kKcmTileW) * sizeof(int32_t);
+  const uint32_t mask = static_cast<uint32_t>((1ull << a.nbits) - 1);
+  const uint32_t mask2 = static_cast<uint32_t>((1ull << a.nbits2) - 1);
+  const int vec = a.w % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  return launch_persistent(fused_separable_recurse_tiles_kernel<KH, KW, RowTaps, ColTaps>,
+                           smem, a.stream, a.n, a.h, a.w, a.x, p.row, p.col, mask, mask2,
+                           p.row_stages, p.col_stages, a.out, a.n, a.h, a.w, a.shift, a.post,
+                           vec);
+}
+
+template <int KH, int KW>
+int fused_shape(const FusedPass& a, const FusedPlans& p) {
+  return method_taps(a.method, a.nbits, [&](auto row_tag) {
+    using RowTaps = typename decltype(row_tag)::type;
+    if constexpr (RowTaps::kRefmlm) {
+      return refmlm_taps(a.nbits2, [&](auto col_tag) {
+        return launch_fused_tiles<KH, KW, RowTaps, typename decltype(col_tag)::type>(a, p);
+      });
+    } else {
+      return launch_fused_tiles<KH, KW, RowTaps, RowTaps>(a, p);
+    }
+  });
+}
+
+// The persistent kernel, for 3x3 and 5x5 taps; any other shape is refused.
+int fused_persistent(const FusedPass& a) {
+  FusedPlans p;
+  if (!load_plan(p.row, p.row_stages, a.row_plan, a.kw) ||
+      !load_plan(p.col, p.col_stages, a.col_plan, a.kh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.kh == 3 && a.kw == 3) return fused_shape<3, 3>(a, p);
+  if (a.kh == 5 && a.kw == 5) return fused_shape<5, 5>(a, p);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tiled recurse kernel (the first design): any shape.
+int fused_tiled(const FusedPass& a) {
+  Coeffs1d r{}, c{};
+  for (int i = 0; i < a.kw; ++i) r.v[i] = a.row[i];
+  for (int i = 0; i < a.kh; ++i) c.v[i] = a.col[i];
+  const size_t smem = fused_smem(a.kh, a.kw);
+  const dim3 grid = fused_grid(a.n, a.h, a.w);
+#define REPRO_TILED(M)                                                                   \
+  case M:                                                                                \
+    launch_recurse<M>(grid, smem, a.stream, a.x, r, c, a.nbits, a.nbits2, a.num_ecc,     \
+                      a.out, a.h, a.w, a.kh, a.kw, a.shift, a.post);                     \
+    break;
+  switch (a.method) {
+    REPRO_TILED(kExact)
+    REPRO_TILED(kRefmlm)
+    REPRO_TILED(kRefmlmNc)
+    REPRO_TILED(kMitchell)
+    REPRO_TILED(kMitchellEcc)
+    REPRO_TILED(kOdma)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_TILED
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro
 
 using namespace repro;
@@ -182,28 +329,24 @@ extern "C" int fused_separable_kcm(const int32_t* x, const int32_t* row_rom, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// row: host (kw,) and col: host (kh,) int32 coefficients, passed by value.
-// method: repro::Method; num_ecc is read by kMitchellEcc only.
+// row: host (kw,) and col: host (kh,) int32 coefficients; row_plan, col_plan:
+// host plan words of each (repro_torch.filters.recurse_plan.plan_words, at
+// nbits and nbits2), or both null. With plans the persistent kernel runs,
+// for 3x3 and 5x5 taps (repro_torch.filters.conv.recurse_route says
+// which); with none the tiled kernel of the first design, for any shape.
+// method: repro::Method; num_ecc is read by the tiled kMitchellEcc only
+// (the plans hold the stages).
 extern "C" int fused_separable_recurse(const int32_t* x, const int32_t* row,
-                                       const int32_t* col, int method, int num_ecc,
+                                       const int32_t* col, const int32_t* row_plan,
+                                       const int32_t* col_plan, int method, int num_ecc,
                                        int nbits, int nbits2, int32_t* out, int n, int h,
                                        int w, int kh, int kw, int shift, int post,
                                        cudaStream_t stream) {
-  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK)
+  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK || n < 1 || h < 1 || w < 1 || nbits < 1 ||
+      nbits > 16 || nbits2 < 1 || nbits2 > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  Coeffs1d r{}, c{};
-  for (int i = 0; i < kw; ++i) r.v[i] = row[i];
-  for (int i = 0; i < kh; ++i) c.v[i] = col[i];
-  const size_t smem = fused_smem(kh, kw);
-  const dim3 grid = fused_grid(n, h, w);
-  switch (method) {
-    case kExact: launch_recurse<kExact>(grid, smem, stream, x, r, c, nbits, nbits2, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kRefmlm: launch_recurse<kRefmlm>(grid, smem, stream, x, r, c, nbits, nbits2, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kRefmlmNc: launch_recurse<kRefmlmNc>(grid, smem, stream, x, r, c, nbits, nbits2, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kMitchell: launch_recurse<kMitchell>(grid, smem, stream, x, r, c, nbits, nbits2, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kMitchellEcc: launch_recurse<kMitchellEcc>(grid, smem, stream, x, r, c, nbits, nbits2, num_ecc, out, h, w, kh, kw, shift, post); break;
-    case kOdma: launch_recurse<kOdma>(grid, smem, stream, x, r, c, nbits, nbits2, num_ecc, out, h, w, kh, kw, shift, post); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const FusedPass a{x, row, col, row_plan, col_plan, method, num_ecc, nbits, nbits2, out,
+                    n, h, w, kh, kw, shift, post, stream};
+  if (row_plan == nullptr && col_plan == nullptr) return fused_tiled(a);
+  return fused_persistent(a);
 }

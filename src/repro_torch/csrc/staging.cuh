@@ -1,0 +1,188 @@
+// Window staging of the persistent conv kernels (conv_pass.cu,
+// fused_separable.cu): a persistent grid walks over 64 x 32 output tiles; a
+// tile's input window, with its halo and zeros outside the image (the
+// reference's zero padding), is copied with cp.async into one of two shared
+// buffers while the block computes the tile before it: 16-byte copies from
+// a 4-aligned column where the rows allow it (W % 4 == 0), else 4-byte
+// copies, with no divide per element. A block has two groups of 64 threads;
+// a thread owns kKcmRows output rows of one column.
+#pragma once
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#include "multipliers.cuh"
+
+namespace repro {
+
+constexpr int kKcmTileW = 64;
+constexpr int kKcmRows = 16;                         // output rows a thread
+constexpr int kKcmGroups = 2;                        // threads per column
+constexpr int kKcmTileH = kKcmRows * kKcmGroups;
+constexpr int kKcmThreads = kKcmTileW * kKcmGroups;
+
+// Window of a tile: rows from y0 - kh/2, `cols` (a multiple of 4) columns
+// from x0 - pad_l, pad_l = kw/2 rounded up to 4 so that the window starts
+// 16-byte aligned when the rows do.
+struct KcmWindow {
+  int pad_l, cols, rows;
+  __host__ __device__ KcmWindow(int kh, int kw)
+      : pad_l((kw / 2 + 3) & ~3),
+        cols((((kw / 2 + 3) & ~3) + kKcmTileW + kw - 1 - kw / 2 + 3) & ~3),
+        rows(kKcmTileH + kh - 1) {}
+  __host__ __device__ int elems() const { return rows * cols; }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// cp.async of 16 or 4 bytes; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+// Issue the copies of an (rows x cols) window whose top-left pixel is
+// (y0, xs) into `win`, zeros outside the image: a warp a row, a lane a
+// 16-byte chunk (vec: w % 4 == 0, xs % 4 == 0, img 16-byte aligned) or an
+// element.
+__device__ __forceinline__ void issue_window(int32_t* win, const int32_t* __restrict__ img,
+                                             int h, int w, int y0, int xs, int rows,
+                                             int cols, bool vec) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid % 32, nwarps = blockDim.x * blockDim.y / 32;
+  for (int r = tid / 32; r < rows; r += nwarps) {
+    const int y = y0 + r;
+    const bool row_in = y >= 0 && y < h;
+    const int32_t* src = img + static_cast<size_t>(row_in ? y : 0) * w;
+    int32_t* dst = win + r * cols;
+    if (vec) {
+      for (int q = lane; q < cols / 4; q += 32) {
+        const int xq = xs + 4 * q;
+        const bool in = row_in && xq >= 0 && xq < w;
+        cp_async16(dst + 4 * q, in ? src + xq : img, in ? 16 : 0);
+      }
+    } else {
+      for (int c = lane; c < cols; c += 32) {
+        const int xc = xs + c;
+        const bool in = row_in && xc >= 0 && xc < w;
+        cp_async4(dst + c, in ? src + xc : img, in ? 4 : 0);
+      }
+    }
+  }
+}
+
+// Walk this block over its tiles of the (n, h, w) batch x for a KH x KW tap
+// shape: `tile(win, img, y0, x0)` computes and stores the tile whose window
+// is `win` (every thread calls it; it may synchronise the block). kAsync:
+// the windows live in smem[0, 2 * window elems), the next tile's copied
+// with cp.async while this one computes; else (a measurement variant) each
+// tile stages its window into smem[0, window elems) with stage_window.
+template <int KH, int KW, bool kAsync = true, class Tile>
+__device__ __forceinline__ void persistent_tiles(const int32_t* __restrict__ x, int n, int h,
+                                                 int w, int vec, int32_t* smem, Tile&& tile) {
+  const KcmWindow ws(KH, KW);
+  const int win_elems = ws.elems();
+  const size_t plane = static_cast<size_t>(h) * w;
+  const int tiles_x = (w + kKcmTileW - 1) / kKcmTileW;
+  const int tiles_y = (h + kKcmTileH - 1) / kKcmTileH;
+  const long long tiles = static_cast<long long>(n) * tiles_x * tiles_y;
+  const long long stride = gridDim.x;
+  auto origin = [&](long long t, int& img, int& y0, int& x0) {
+    x0 = static_cast<int>(t % tiles_x) * kKcmTileW;
+    const long long rest = t / tiles_x;
+    y0 = static_cast<int>(rest % tiles_y) * kKcmTileH;
+    img = static_cast<int>(rest / tiles_y);
+  };
+  long long t = blockIdx.x;
+  int buf = 0;
+  if constexpr (kAsync) {
+    if (t < tiles) {
+      int img, y0, x0;
+      origin(t, img, y0, x0);
+      issue_window(smem, x + img * plane, h, w, y0 - KH / 2, x0 - ws.pad_l, ws.rows, ws.cols,
+                   vec);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (; t < tiles; t += stride) {
+    int img, y0, x0;
+    origin(t, img, y0, x0);
+    if constexpr (kAsync) {
+      if (t + stride < tiles) {
+        int nimg, ny0, nx0;
+        origin(t + stride, nimg, ny0, nx0);
+        issue_window(smem + (buf ^ 1) * win_elems, x + nimg * plane, h, w, ny0 - KH / 2,
+                     nx0 - ws.pad_l, ws.rows, ws.cols, vec);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      stage_window(smem, x + img * plane, h, w, y0 - KH / 2, x0 - ws.pad_l, ws.rows, ws.cols);
+    }
+    __syncthreads();
+    tile(smem + buf * win_elems, img, y0, x0);
+    __syncthreads();
+    if constexpr (kAsync) buf ^= 1;
+  }
+  if constexpr (kAsync) asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Store a thread's R sums of output column ox from row oy0 through the
+// epilogue, inside the image only.
+template <int R>
+__device__ __forceinline__ void store_rows(int32_t* __restrict__ img_out, const uint32_t (&acc)[R],
+                                           int h, int w, int ox, int oy0, int shift, int post) {
+  if (ox >= w) return;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int oy = oy0 + i;
+    if (oy < h) img_out[static_cast<size_t>(oy) * w + ox] = apply_post(acc[i], post, shift);
+  }
+}
+
+// Launch a persistent kernel with `kernel_args` over the tiles of an (n, h,
+// w) batch: as many blocks as the SMs hold at once at this shared-memory
+// size, at most one a tile. The limit and the resident count are queried
+// once per kernel, device and size: the queries cost more host time than a
+// small launch.
+template <class Kernel, class... Args>
+int launch_persistent(Kernel kernel, size_t smem, cudaStream_t stream, int n, int h, int w,
+                      Args... kernel_args) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, int> resident;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int dev = 0, blocks = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    auto it = resident.find({key, dev, smem});
+    if (it == resident.end()) {
+      int sms = 0, per_sm = 0;
+      err = cudaFuncSetAttribute(key, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, key, kKcmThreads, smem);
+      if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+      if (err != cudaSuccess) return static_cast<int>(err);
+      it = resident.emplace(std::make_tuple(key, dev, smem), per_sm * sms).first;
+    }
+    blocks = it->second;
+  }
+  const long long tiles = static_cast<long long>(n) * ((w + kKcmTileW - 1) / kKcmTileW) *
+                          ((h + kKcmTileH - 1) / kKcmTileH);
+  blocks = static_cast<int>(std::min<long long>(tiles, blocks));
+  kernel<<<blocks, dim3(kKcmTileW, kKcmGroups), smem, stream>>>(kernel_args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro

@@ -18,7 +18,10 @@ a wrapping int32 sum, then `apply_post` (a rounding shift, then clip to
 'kcm' gathers from per-tap product ROMs computed by the selected
 multiplier (`repro_torch.core.kcm`, sign baked in), 'recurse' evaluates
 the multiplier per tap, 'auto' is 'kcm' (coefficients are always concrete
-host values here). Both give the same bytes.
+host values here). Both give the same bytes. The recurse kernels take the
+coefficient side of every product from a host plan (`recurse_plan`) on
+the tap shapes their persistent kernels are compiled for
+(`recurse_route`); other shapes run their tiled kernels.
 
 A kernel wrapper launches its kernel for a CUDA tensor, and raises if the
 launch fails; it runs the plain version only for a CPU tensor. Each launch
@@ -45,6 +48,7 @@ from repro_torch.core.kcm import (
 )
 from repro_torch.core.mitchell import MAX_NBITS, wrap_int32
 from repro_torch.core.refmlm import SUPPORTED_WIDTHS
+from repro_torch.filters.recurse_plan import plan_words, recurse_plan
 from repro_torch.kernels.build import launch
 
 MULT_IMPLS = ("recurse", "kcm", "auto")
@@ -58,6 +62,13 @@ _METHOD_CODES = {"exact": 0, "refmlm": 1, "refmlm_nc": 2, "mitchell": 3,
 # Pixels per chunk of the plain recurse pass: bounds its digit-plane
 # temporaries (64 int64 planes per pixel for 16-bit REFMLM).
 _PLAIN_CHUNK_PIXELS = 1 << 22
+
+# Tap shapes the persistent recurse kernels are compiled for (the bank's);
+# any other shape runs the tiled kernels. The C entries run the persistent
+# kernel when they are given a plan and the tiled one when they are not, so
+# this rule (`recurse_route`) is the only copy.
+PERSISTENT_SHAPES = ((3, 3), (5, 5), (1, 3), (3, 1), (1, 5), (5, 1))
+FUSED_PERSISTENT_SHAPES = ((3, 3), (5, 5))
 
 #: kernel name -> number of launches since the last `reset_launches()`.
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -155,10 +166,10 @@ def fused_separable_recurse_plain(x: torch.Tensor, row: np.ndarray,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {    # the entry points' argument types, the stream aside
     "conv_pass_kcm": ("conv_pass", (_P, _P, _I, _P) + (_I,) * 7),
-    "conv_pass_recurse": ("conv_pass", (_P, _P, _I, _I, _I, _P) + (_I,) * 7),
+    "conv_pass_recurse": ("conv_pass", (_P, _P, _P, _I, _I, _I, _P) + (_I,) * 7),
     "fused_separable_kcm": ("fused_separable", (_P, _P, _I, _P, _I, _P) + (_I,) * 7),
     "fused_separable_recurse": ("fused_separable",
-                                (_P, _P, _P, _I, _I, _I, _I, _P) + (_I,) * 7),
+                                (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P) + (_I,) * 7),
 }
 
 
@@ -240,9 +251,26 @@ def conv_pass_kcm(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, *,
         POSTS.index(post)))
 
 
+def recurse_route(kh: int, kw: int, *, fused: bool = False) -> str:
+    """Which recurse kernel runs a (kh, kw) tap shape: 'persistent' for the
+    shapes it is compiled for (PERSISTENT_SHAPES for the direct pass,
+    FUSED_PERSISTENT_SHAPES for the fused one), 'tiled' for any other."""
+    shapes = FUSED_PERSISTENT_SHAPES if fused else PERSISTENT_SHAPES
+    return "persistent" if (kh, kw) in shapes else "tiled"
+
+
+def _plan_ptr(method: str, taps, nbits: int, route: str) -> int | None:
+    """Host address of the cached plan words for a persistent launch
+    (None, a null pointer, for the tiled kernels, which take no plan)."""
+    if route != "persistent":
+        return None
+    return plan_words(recurse_plan(method, taps, nbits)).ctypes.data
+
+
 def conv_pass_recurse(x: torch.Tensor, taps: np.ndarray, *, method: str,
                       nbits: int, shift: int, post: str) -> torch.Tensor:
-    """Direct pass with the multiplier evaluated per tap."""
+    """Direct pass with the multiplier evaluated per tap, from the host plan
+    of `taps` (`recurse_plan`) on the persistent kernel's shapes."""
     _check_x(x)
     _check_post(post)
     code, num_ecc = _check_method_width(method, nbits)
@@ -253,8 +281,9 @@ def conv_pass_recurse(x: torch.Tensor, taps: np.ndarray, *, method: str,
     _check_cuda(x, kh, kw)
     n, h, w = x.shape
     coeffs = _host_ints(taps)
+    plan = _plan_ptr(method, taps, nbits, recurse_route(kh, kw))
     return _launch("conv_pass_recurse", x, lambda out: (
-        ctypes.cast(coeffs, ctypes.c_void_p), code, num_ecc, nbits,
+        ctypes.cast(coeffs, ctypes.c_void_p), plan, code, num_ecc, nbits,
         out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)))
 
 
@@ -280,7 +309,8 @@ def fused_separable_kcm(x: torch.Tensor, row_rom: torch.Tensor,
 def fused_separable_recurse(x: torch.Tensor, row: np.ndarray, col: np.ndarray,
                             *, method: str, nbits: int, nbits2: int,
                             shift: int, post: str) -> torch.Tensor:
-    """Fused separable pass with the multiplier evaluated per tap."""
+    """Fused separable pass with the multiplier evaluated per tap, from the
+    host plans of `row` and `col` on the persistent kernel's shapes."""
     _check_x(x)
     _check_post(post)
     code, num_ecc = _check_method_width(method, nbits)
@@ -293,10 +323,13 @@ def fused_separable_recurse(x: torch.Tensor, row: np.ndarray, col: np.ndarray,
     _check_cuda(x, kh, kw)
     n, h, w = x.shape
     row_c, col_c = _host_ints(row), _host_ints(col)
+    route = recurse_route(kh, kw, fused=True)
+    row_plan = _plan_ptr(method, row, nbits, route)
+    col_plan = _plan_ptr(method, col, nbits2, route)
     return _launch("fused_separable_recurse", x, lambda out: (
         ctypes.cast(row_c, ctypes.c_void_p), ctypes.cast(col_c, ctypes.c_void_p),
-        code, num_ecc, nbits, nbits2, out.data_ptr(), n, h, w, kh, kw, shift,
-        POSTS.index(post)))
+        row_plan, col_plan, code, num_ecc, nbits, nbits2, out.data_ptr(), n, h,
+        w, kh, kw, shift, POSTS.index(post)))
 
 
 # ------------------------------------------------------------- public passes
@@ -397,10 +430,11 @@ def second_pass_nbits(intermediate_max: int, coeff_max: int) -> int:
 
 
 __all__ = [
-    "KERNELS", "LAUNCHES", "METHODS", "MULT_IMPLS", "POSTS", "apply_post",
+    "FUSED_PERSISTENT_SHAPES", "KERNELS", "LAUNCHES", "METHODS", "MULT_IMPLS",
+    "PERSISTENT_SHAPES", "POSTS", "apply_post",
     "conv2d_pass", "conv_pass_kcm", "conv_pass_kcm_plain", "conv_pass_recurse",
     "conv_pass_recurse_plain", "fused_separable_kcm",
     "fused_separable_kcm_plain", "fused_separable_pass",
     "fused_separable_recurse", "fused_separable_recurse_plain",
-    "reset_launches", "rom_stack", "second_pass_nbits", "tap_multiplier",
+    "recurse_route", "reset_launches", "rom_stack", "second_pass_nbits", "tap_multiplier",
 ]
