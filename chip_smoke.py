@@ -18,7 +18,11 @@ Phases, each fatal on failure:
                (+-255, +-170), zero and negative taps, every compiled tap
                shape and the tiled ones, the persistent kernels equal to
                the tiled kernels of the first design (variant 0, the C
-               entry given no plan). The three matmul kernels: every
+               entry given no plan). Every conv kernel again on operands at
+               or past the ROMs (+-2**nbits, +-300 at 8 bits, +-70000 at
+               16; -2**31 and 2**31 - 1 for the kcm kernels), both carry
+               widths, and the fused kcm kernel against its tiled kernel of
+               the first design (variant 0). The three matmul kernels: every
                (num_ecc, case_split) of `mitchell_matmul`; both limb modes of
                `karatsuba_matmul_i8` (int8 limbs, their edges -128 / 127 and
                hi + lo = -128 included) and of the wide `karatsuba_matmul`
@@ -31,7 +35,8 @@ Phases, each fatal on failure:
                and through 'recurse', REFMLM bytes == exact bytes, a forced
                two-pass run, the serving batch hook with padding, the port's
                oracle on a small batch, the paper's Table 10 assertions;
-               every conv kernel must have been launched;
+               every conv kernel must have been launched, and every fused
+               kcm and recurse launch must have taken its persistent kernel;
   5. matmul -- the quantized-matmul path at full width: `core.matmul(impl=
                'auto')` for the six kernel methods and `kernels.ops.
                lns_matmul` / `limb_matmul` on the Qwen2-0.5B MLP up-projection
@@ -55,6 +60,10 @@ Phases, each fatal on failure:
                the full-width shape; `conv_pass_kcm`'s measurement variants
                (the tiled kernel it replaced, ROM per tile or once, cp.async
                or stage_window window) at both shapes, on [variant] lines;
+               `fused_separable_kcm` beside its tiled kernel of the first
+               design (variant 0) for gaussian3 and gaussian5 at both shapes,
+               with the persistent instance's column prefix, shared memory a
+               block, resident blocks an SM, registers and spills;
                the recurse kernels for every method beside the tiled kernel
                of the first design (variant 0), on [variant] lines too.
 The line before the last is a JSON object naming the seven kernels with
@@ -194,21 +203,54 @@ def noisy_frames(n: int, hw: tuple[int, int], percent: int, seed: int) -> np.nda
                      for i in range(n)]).astype(np.int32)
 
 
-def kcm_variant(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, shift: int,
+def kcm_variant(x: torch.Tensor, rom, kh: int, kw: int, shift: int,
                 post: str, variant: int) -> torch.Tensor:
-    """conv_pass_kcm through measurement variant `variant` (KCM_VARIANTS);
-    not counted as a launch of the port."""
+    """conv_pass_kcm through measurement variant `variant` (KCM_VARIANTS)
+    from a `RomStack`; not counted as a launch of the port."""
     import ctypes
 
     from repro_torch.filters.conv import POSTS
     from repro_torch.kernels.build import launch
-    argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p) \
-        + (ctypes.c_int,) * 8
+    argtypes = (ctypes.c_void_p, ctypes.c_void_p) + (ctypes.c_int,) * 3 \
+        + (ctypes.c_void_p,) + (ctypes.c_int,) * 8
     out = torch.empty_like(x)
     launch("conv_pass", "conv_pass_kcm_variant", argtypes, x.device, x.data_ptr(),
-           rom.data_ptr(), rom.shape[1], out.data_ptr(), *x.shape, kh, kw, shift,
-           POSTS.index(post), variant)
+           rom.table.data_ptr(), rom.table.shape[1], rom.fill, rom.carry_bits,
+           out.data_ptr(), *x.shape, kh, kw, shift, POSTS.index(post), variant)
     return out
+
+
+def fused_kcm_tiled(x: torch.Tensor, row, col, shift: int, post: str) -> torch.Tensor:
+    """fused_separable_kcm through the tiled kernel of the first design (the
+    C entry given a zero prefix length): measurement variant 0, not counted
+    as a launch of the port."""
+    from repro_torch.filters.conv import POSTS, _SIGNATURES
+    from repro_torch.kernels.build import launch
+    source, argtypes = _SIGNATURES["fused_separable_kcm"]
+    out = torch.empty_like(x)
+    launch(source, "fused_separable_kcm", argtypes, x.device, x.data_ptr(),
+           row.table.data_ptr(), row.table.shape[1], row.fill, col.table.data_ptr(),
+           col.table.shape[1], col.fill, 0, 0, out.data_ptr(), *x.shape, col.table.shape[0],
+           row.table.shape[0], shift, POSTS.index(post))
+    return out
+
+
+def fused_kcm_info(row, col) -> dict[str, int]:
+    """What the persistent fused_separable_kcm instance for these ROM stacks
+    takes on this card: its column prefix (`column_prefix`), dynamic shared
+    memory a block, resident blocks an SM, registers and local (spill)
+    bytes a thread."""
+    import ctypes
+
+    from repro_torch.filters.conv import column_prefix
+    from repro_torch.kernels.build import launch
+    prefix, int16 = column_prefix(row, col)
+    info = (ctypes.c_int * 4)()
+    launch("fused_separable", "fused_separable_kcm_info", (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
+           torch.device("cuda"), row.table.shape[1], col.table.shape[1], prefix, int(int16),
+           col.table.shape[0], row.table.shape[0], ctypes.addressof(info))
+    return {"prefix": prefix, "prefix_int16": int16, "smem_bytes": info[0],
+            "blocks_per_sm": info[1], "registers": info[2], "local_bytes": info[3]}
 
 
 def _method_args(method: str) -> tuple[int, int]:
@@ -297,7 +339,7 @@ def phase_recurse_parity(max_err: dict[str, int]) -> None:
                     check("conv_pass_recurse", got,
                           conv.conv_pass_recurse_plain(x, taps, method=method, nbits=nbits,
                                                        **kw_), what)
-                    if conv.recurse_route(*taps.shape) == "persistent":
+                    if conv.kernel_route(*taps.shape) == "persistent":
                         check("conv_pass_recurse", recurse_tiled(x, taps, method, nbits, **kw_),
                               got, f"variant 0 {what}")
                 # fused: rows at nbits, columns at nbits2, with pixels and
@@ -320,7 +362,7 @@ def phase_recurse_parity(max_err: dict[str, int]) -> None:
                         got = conv.fused_separable_recurse(xf, row, col, **rk)
                         check("fused_separable_recurse", got,
                               conv.fused_separable_recurse_plain(xf, row, col, **rk), what)
-                        if conv.recurse_route(kh, kw, fused=True) == "persistent":
+                        if conv.kernel_route(kh, kw, fused=True) == "persistent":
                             check("fused_separable_recurse",
                                   fused_tiled(xf, row, col, method, nbits, nbits2, **kw_), got,
                                   f"variant 0 {what}")
@@ -390,10 +432,11 @@ def phase_parity(max_err: dict[str, int]) -> None:
                 rr = conv.rom_stack(method, row, 8, x.device)
                 cr = conv.rom_stack(method, col, nb2, x.device)
                 kw_ = dict(shift=spec.shift, post=spec.post)
-                check("fused_separable_kcm",
-                      conv.fused_separable_kcm(x, rr, cr, **kw_),
-                      conv.fused_separable_kcm_plain(x, rr, cr, **kw_),
-                      f"{name} {method} {shape}")
+                want = conv.fused_separable_kcm_plain(x, rr, cr, **kw_)
+                check("fused_separable_kcm", conv.fused_separable_kcm(x, rr, cr, **kw_),
+                      want, f"{name} {method} {shape}")
+                check("fused_separable_kcm", fused_kcm_tiled(x, rr, cr, **kw_), want,
+                      f"variant 0 {name} {method} {shape}")
                 rk = dict(method=method, nbits=8, nbits2=nb2, **kw_)
                 check("fused_separable_recurse",
                       conv.fused_separable_recurse(x, row, col, **rk),
@@ -424,10 +467,11 @@ def phase_parity(max_err: dict[str, int]) -> None:
                 rr = conv.rom_stack(method, row, nbits, x.device)
                 cr = conv.rom_stack(method, col, nbits2, x.device)
                 kw_ = dict(shift=4, post="clip")
-                check("fused_separable_kcm",
-                      conv.fused_separable_kcm(small, rr, cr, **kw_),
-                      conv.fused_separable_kcm_plain(small, rr, cr, **kw_),
-                      f"rows {nbits} cols {nbits2} {method} {shape}")
+                want = conv.fused_separable_kcm_plain(small, rr, cr, **kw_)
+                check("fused_separable_kcm", conv.fused_separable_kcm(small, rr, cr, **kw_),
+                      want, f"rows {nbits} cols {nbits2} {method} {shape}")
+                check("fused_separable_kcm", fused_kcm_tiled(small, rr, cr, **kw_), want,
+                      f"variant 0 rows {nbits} cols {nbits2} {method} {shape}")
                 rk = dict(method=method, nbits=nbits, nbits2=nbits2, **kw_)
                 check("fused_separable_recurse",
                       conv.fused_separable_recurse(small, row, col, **rk),
@@ -437,6 +481,116 @@ def phase_parity(max_err: dict[str, int]) -> None:
     log(f"[parity] {checked} kernel/plain comparisons, max |err| {max_err}")
     if failures:
         raise AssertionError("kernels disagree with their plain versions:\n"
+                             + "\n".join(failures[:20]))
+
+
+def with_out_of_range(x: torch.Tensor, nbits: int, seed: int,
+                      extremes: bool = False) -> torch.Tensor:
+    """x with about one pixel in 50 replaced by an operand at or past the
+    2**nbits ROMs: +-2**nbits, +-(2**nbits + 1), +-300 at 8 bits, +-70000
+    at 16; with `extremes` also -2**31 and 2**31 - 1 (the kcm kernels only:
+    the recurse path's Mitchell family differs from the reference there,
+    ROADMAP F2)."""
+    extra = (300, -300) if nbits == 8 else (70000, -70000)
+    if extremes:
+        extra += (-(1 << 31), (1 << 31) - 1)
+    values = torch.tensor([1 << nbits, -(1 << nbits), (1 << nbits) + 1, -(1 << nbits) - 1,
+                           *extra], dtype=torch.int32)
+    g = torch.Generator().manual_seed(seed)
+    pick = torch.rand(x.shape, generator=g) < 0.02
+    which = torch.randint(len(values), x.shape, generator=g)
+    return torch.where(pick.to(x.device), values[which].to(x.device), x)
+
+
+def phase_range_parity(max_err: dict[str, int]) -> None:
+    """The four conv kernels against their plain versions on operands at or
+    past the ROMs (`with_out_of_range`; F1 in ROADMAP), byte for byte, and
+    the persistent designs against the tiled kernels of the first design
+    (variant 0): every multiplier, the bank at 8 bits (int16 and int32
+    carries: sobel and laplacian have ROM bounds below 2**15, the others
+    not), the F1 taps, the 16-bit column pass of the two-pass dataflow
+    (int32 ROMs, fill -2**31), and the fused passes, whose out-of-range row
+    sums reach the column ROMs' global-memory entries and their fill."""
+    from repro_torch.filters import conv
+    from repro_torch.filters.bank import FILTER_BANK, max_intermediate
+
+    failures: list[str] = []
+    checked = 0
+    carries = set()
+
+    def check(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+        nonlocal checked
+        checked += 1
+        check_equal(max_err, failures, kernel, got, want, what)
+
+    f1 = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]])
+    direct = [(name, spec.taps, spec.shift, spec.post) for name, spec in FILTER_BANK.items()]
+    direct.append(("f1", f1, 0, "none"))
+    for i, shape in enumerate(PARITY_SHAPES):
+        frames = torch.from_numpy(noisy_frames(shape[0], shape[1:], 20, 30 + i)).cuda()
+        x8, k8 = (with_out_of_range(frames, 8, 40 + i, e) for e in (False, True))
+        rng = np.random.default_rng(50 + i)
+        wide = torch.from_numpy(rng.integers(-(1 << 16) + 1, 1 << 16, shape).astype(np.int32))
+        x16, k16 = (with_out_of_range(wide.cuda(), 16, 60 + i, e) for e in (False, True))
+        for method in METHODS:
+            for name, taps, shift, post in direct:
+                kh, kw = taps.shape
+                rom = conv.rom_stack(method, taps, 8, x8.device)
+                carries.add(rom.carry_bits)
+                kw_ = dict(shift=shift, post=post)
+                what = f"{name} {method} nbits=8 carry={rom.carry_bits} {shape}"
+                want = conv.conv_pass_kcm_plain(k8, rom, kh, kw, **kw_)
+                check("conv_pass_kcm", conv.conv_pass_kcm(k8, rom, kh, kw, **kw_), want, what)
+                if (kh, kw) == (3, 3) and method in ("refmlm", "mitchell"):
+                    for v in KCM_VARIANTS:
+                        check("conv_pass_kcm", kcm_variant(k8, rom, kh, kw, shift, post, v),
+                              want, f"variant {v} {what}")
+                t64 = np.asarray(taps, np.int64)
+                rk = dict(method=method, nbits=8, **kw_)
+                got = conv.conv_pass_recurse(x8, t64, **rk)
+                check("conv_pass_recurse", got, conv.conv_pass_recurse_plain(x8, t64, **rk), what)
+                check("conv_pass_recurse", recurse_tiled(x8, t64, method, 8, **kw_), got,
+                      f"variant 0 {what}")
+            for name, spec in FILTER_BANK.items():
+                if not spec.separable:
+                    continue
+                row = spec.sep_row.astype(np.int64)
+                col = spec.sep_col.astype(np.int64)
+                nb2 = conv.second_pass_nbits(max_intermediate(spec), int(np.abs(col).max()))
+                kw_ = dict(shift=spec.shift, post=spec.post)
+                rr = conv.rom_stack(method, row, 8, x8.device)
+                cr = conv.rom_stack(method, col, nb2, x8.device)
+                what = f"{name} {method} {shape}"
+                want = conv.fused_separable_kcm_plain(k8, rr, cr, **kw_)
+                check("fused_separable_kcm", conv.fused_separable_kcm(k8, rr, cr, **kw_), want,
+                      what)
+                check("fused_separable_kcm", fused_kcm_tiled(k8, rr, cr, **kw_), want,
+                      f"variant 0 {what}")
+                rk = dict(method=method, nbits=8, nbits2=nb2, **kw_)
+                got = conv.fused_separable_recurse(x8, row, col, **rk)
+                check("fused_separable_recurse", got,
+                      conv.fused_separable_recurse_plain(x8, row, col, **rk), what)
+                check("fused_separable_recurse",
+                      fused_tiled(x8, row, col, method, 8, nb2, **kw_), got, f"variant 0 {what}")
+                # the two-pass column pass at 16 bits: int32 ROMs, fill -2**31
+                colt = col[:, None]
+                crom = conv.rom_stack(method, colt, 16, x16.device)
+                carries.add(crom.carry_bits)
+                what = f"{name} col nbits=16 {method} {shape}"
+                check("conv_pass_kcm", conv.conv_pass_kcm(k16, crom, len(col), 1, **kw_),
+                      conv.conv_pass_kcm_plain(k16, crom, len(col), 1, **kw_), what)
+                rk = dict(method=method, nbits=16, **kw_)
+                got = conv.conv_pass_recurse(x16, colt, **rk)
+                check("conv_pass_recurse", got, conv.conv_pass_recurse_plain(x16, colt, **rk),
+                      what)
+                check("conv_pass_recurse", recurse_tiled(x16, colt, method, 16, **kw_), got,
+                      f"variant 0 {what}")
+    torch.cuda.synchronize()
+    assert carries == {16, 32}, f"both carry widths must be covered, got {carries}"
+    log(f"[parity] {checked} comparisons on operands past the ROMs (plain, variant 0), "
+        f"max |err| { {k: max_err[k] for k in conv.KERNELS} }")
+    if failures:
+        raise AssertionError("kernels disagree on operands past the ROMs:\n"
                              + "\n".join(failures[:20]))
 
 
@@ -504,10 +658,13 @@ def phase_main(device: torch.device) -> tuple[dict[str, int], torch.Tensor]:
         f"launches {launches}")
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    for name in FILTER_NAMES:      # the bank's recurse launches take the persistent kernels
-        spec = FILTER_BANK[name]
-        shape = (spec.sep_col.size, spec.sep_row.size) if spec.separable else spec.taps.shape
-        assert conv.recurse_route(*shape, fused=spec.separable) == "persistent", name
+    # every fused kcm and recurse launch of the main path (the bank's
+    # shapes) took the persistent kernel, none the tiled one
+    routes = dict(conv.ROUTE_LAUNCHES)
+    log(f"[main] launches by route {routes}")
+    for name in conv.ROUTED:
+        assert routes[(name, "tiled")] == 0 and routes[(name, "persistent")] == launches[name], \
+            f"{name}: a main-path launch took the tiled kernel: {routes}"
     return launches, torch.from_numpy(frames).to(device)
 
 
@@ -689,10 +846,11 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
         for name, kernel, plain, coef_bytes, pixel_ops, lib, filt in (
                 ("conv_pass_kcm", lambda: conv.conv_pass_kcm(x, rom9, 3, 3, **direct_kw),
                  lambda: conv.conv_pass_kcm_plain(x, rom9, 3, 3, **direct_kw),
-                 rom9.numel() * 4, 9 * KCM_TAP_OPS, "direct", "fig9"),
+                 rom9.table.numel() * 4, 9 * KCM_TAP_OPS, "direct", "fig9"),
                 ("fused_separable_kcm", lambda: conv.fused_separable_kcm(x, rrom, crom, **sep_kw),
                  lambda: conv.fused_separable_kcm_plain(x, rrom, crom, **sep_kw),
-                 (rrom.numel() + crom.numel()) * 4, (row.size + col.size) * KCM_TAP_OPS,
+                 (rrom.table.numel() + crom.table.numel()) * 4,
+                 (row.size + col.size) * KCM_TAP_OPS,
                  "sep", fused_name)):
             record({"kernel": name, "shape": list(shape), "filter": filt, "method": "refmlm",
                     "kernel_ms": time_ms(kernel, 20),
@@ -738,6 +896,30 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
                     f"{shape}: {row_['variant0_ms']} ms a call, {row_['variant0_device_ms']} "
                     f"ms device time; the entry point {row_['kernel_ms']} / "
                     f"{row_['kernel_device_ms']} ms")
+        # the fused kcm kernel (persistent) beside the tiled kernel of the first design
+        # (variant 0), gaussian3 and gaussian5, with the persistent
+        # instance's resources on this card
+        for filt in ("gaussian3", "gaussian5"):
+            fspec = get_filter(filt)
+            frow = conv.rom_stack("refmlm", fspec.sep_row, 8, device)
+            fcol = conv.rom_stack("refmlm", fspec.sep_col, 16, device)
+            fkw = dict(shift=fspec.shift, post=fspec.post)
+            new = lambda: conv.fused_separable_kcm(x, frow, fcol, **fkw)
+            tiled = lambda: fused_kcm_tiled(x, frow, fcol, **fkw)
+            ms, device_ms = time_ms(new, 20), time_ms_batched(new)
+            v0_ms, v0_device_ms = time_ms(tiled, 20), time_ms_batched(tiled)
+            info = fused_kcm_info(frow, fcol)
+            if filt == fused_name:
+                results[("fused_separable_kcm", "refmlm", tuple(shape))].update(
+                    variant0_ms=v0_ms, variant0_device_ms=v0_device_ms, **info)
+            log(f"[variant] fused_separable_kcm {filt} refmlm {shape}: persistent {ms} ms a "
+                f"call, {device_ms} ms device time; 0 (tiled kernel, the first design) "
+                f"{v0_ms} ms a call, {v0_device_ms} ms device time; persistent "
+                f"{fspec.sep_col.size}x{fspec.sep_row.size}: column prefix {info['prefix']} "
+                f"entries a tap as {'int16' if info['prefix_int16'] else 'int32'}, "
+                f"{info['smem_bytes']} bytes shared memory a block, {info['blocks_per_sm']} "
+                f"blocks an SM, {info['registers']} registers, {info['local_bytes']} bytes "
+                f"local memory (spills) a thread")
         for v, what in KCM_VARIANTS.items():
             call = lambda v=v: kcm_variant(x, rom9, 3, 3, 8, "clip", v)
             ms, device_ms = time_ms(call, 20), time_ms_batched(call)
@@ -1131,6 +1313,7 @@ def main() -> int:
     max_err = dict.fromkeys(KERNELS + MATMUL_KERNELS, 0)
     phase_parity(max_err)
     phase_recurse_parity(max_err)
+    phase_range_parity(max_err)
     phase_matmul_parity(max_err, device)
     launches, main_frames = phase_main(device)
     mm_launches, (x, w) = phase_matmul_main(device)

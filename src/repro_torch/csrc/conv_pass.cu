@@ -1,7 +1,10 @@
 // One direct convolution pass of the integer filter datapath:
 // (N, H, W) int32 -> (N, H, W) int32,
 //   out[p] = post( sum over kh x kw taps of sgn(t) * sgn(c) * mult(|t|, |c|) )
-// with zero padding and a wrapping int32 sum.
+// with zero padding and a wrapping int32 sum. For an operand at or past the
+// ROM the kcm variant adds sgn(t) * fill, and its sum is the reference's
+// carry: int16 (the low 16 bits, sign-extended) when the ROM stack's bound
+// is below 2**15, as `_tables_for` picks it (kcm_term, narrow_carry).
 //
 // Replaces the Pallas kernel `_kernel` (src/repro/filters/conv.py:215),
 // launched by `_pass_call` (src/repro/filters/conv.py:263), in both of its
@@ -67,8 +70,8 @@ constexpr int kPlanTaps = 25;                        // taps of the largest bank
 template <bool kRomInSmem>
 __global__ void __launch_bounds__(kTileW * kTileH)
 conv_pass_kcm_tiled_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ rom,
-                     int rom_len, int32_t* __restrict__ out, int h, int w, int kh,
-                     int kw, int shift, int post) {
+                     int rom_len, int32_t fill, int carry_bits, int32_t* __restrict__ out,
+                     int h, int w, int kh, int kw, int shift, int post) {
   extern __shared__ int32_t smem[];
   const int ww = kTileW + kw - 1, wh = kTileH + kh - 1;
   int32_t* win = smem;
@@ -90,8 +93,9 @@ conv_pass_kcm_tiled_kernel(const int32_t* __restrict__ x, const int32_t* __restr
   uint32_t acc = 0u;
   for (int di = 0; di < kh; ++di)
     for (int dj = 0; dj < kw; ++dj)
-      acc += kcm_term(table, rom_len, di * kw + dj, win[(ty + di) * ww + tx + dj]);
-  out[blockIdx.z * plane + static_cast<size_t>(oy) * w + ox] = apply_post(acc, post, shift);
+      acc += kcm_term(table, rom_len, di * kw + dj, win[(ty + di) * ww + tx + dj], fill);
+  out[blockIdx.z * plane + static_cast<size_t>(oy) * w + ox] =
+      apply_post(narrow_carry(acc, carry_bits), post, shift);
 }
 
 // The kKcmRows sums of one thread for a KH x KW tap shape: window row wr
@@ -100,7 +104,8 @@ conv_pass_kcm_tiled_kernel(const int32_t* __restrict__ x, const int32_t* __restr
 // from a register. Every loop unrolls and the tap-row tests fold away.
 template <int KH, int KW>
 __device__ __forceinline__ void kcm_rows(uint32_t (&acc)[kKcmRows], const int32_t* win,
-                                         int cols, const int32_t* table, int rom_len) {
+                                         int cols, const int32_t* table, int rom_len,
+                                         int32_t fill) {
 #pragma unroll
   for (int wr = 0; wr < kKcmRows + KH - 1; ++wr) {
     int32_t v[KW];
@@ -111,7 +116,8 @@ __device__ __forceinline__ void kcm_rows(uint32_t (&acc)[kKcmRows], const int32_
       const int di = wr - i;
       if (di >= 0 && di < KH) {
 #pragma unroll
-        for (int dj = 0; dj < KW; ++dj) acc[i] += kcm_term(table, rom_len, di * KW + dj, v[dj]);
+        for (int dj = 0; dj < KW; ++dj)
+          acc[i] += kcm_term(table, rom_len, di * KW + dj, v[dj], fill);
       }
     }
   }
@@ -127,8 +133,8 @@ __device__ __forceinline__ void kcm_rows(uint32_t (&acc)[kKcmRows], const int32_
 template <int KH, int KW, bool kRomInSmem, bool kRomEachTile, bool kAsync, bool kTaps>
 __global__ void __launch_bounds__(kKcmThreads)
 conv_pass_kcm_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ rom,
-                     int rom_len, int32_t* __restrict__ out, int n, int h, int w,
-                     int shift, int post, int vec) {
+                     int rom_len, int32_t fill, int carry_bits, int32_t* __restrict__ out,
+                     int n, int h, int w, int shift, int post, int vec) {
   extern __shared__ __align__(16) int32_t smem[];
   const KcmWindow ws(KH, KW);
   int32_t* srom = smem + (kAsync ? 2 : 1) * ws.elems();
@@ -149,7 +155,9 @@ conv_pass_kcm_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ 
 #pragma unroll
       for (int i = 0; i < kKcmRows; ++i) acc[i] = win[(r0 + i + KH / 2) * ws.cols + c + KW / 2];
     } else {
-      kcm_rows<KH, KW>(acc, win + r0 * ws.cols + c, ws.cols, table, rom_len);
+      kcm_rows<KH, KW>(acc, win + r0 * ws.cols + c, ws.cols, table, rom_len, fill);
+#pragma unroll
+      for (int i = 0; i < kKcmRows; ++i) acc[i] = narrow_carry(acc[i], carry_bits);
     }
     store_rows(out + img * plane, acc, h, w, x0 + tx, y0 + r0, shift, post);
   });
@@ -201,39 +209,41 @@ void launch_recurse(dim3 grid, size_t smem, cudaStream_t stream, const int32_t* 
 // at this shared-memory size, at most one per tile.
 template <int KH, int KW, bool kRomInSmem, bool kRomEachTile, bool kAsync,
           bool kTaps = true>
-int launch_kcm(const int32_t* x, const int32_t* rom, int rom_len, int32_t* out, int n,
-               int h, int w, int shift, int post, cudaStream_t stream) {
+int launch_kcm(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill, int carry_bits,
+               int32_t* out, int n, int h, int w, int shift, int post, cudaStream_t stream) {
   const KcmWindow win(KH, KW);
   const size_t rom_bytes =
       kRomInSmem ? static_cast<size_t>(KH) * KW * rom_len * sizeof(int32_t) : 0;
   const size_t smem = (kAsync ? 2 : 1) * win.elems() * sizeof(int32_t) + rom_bytes;
   const int vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   return launch_persistent(conv_pass_kcm_kernel<KH, KW, kRomInSmem, kRomEachTile, kAsync, kTaps>,
-                           smem, stream, n, h, w, x, rom, rom_len, out, n, h, w, shift, post,
-                           vec);
+                           smem, stream, n, h, w, x, rom, rom_len, fill, carry_bits, out, n, h,
+                           w, shift, post, vec);
 }
 
 template <bool kRomInSmem>
-int launch_tiled(const int32_t* x, const int32_t* rom, int rom_len, int32_t* out, int n,
-                 int h, int w, int kh, int kw, int shift, int post, cudaStream_t stream) {
+int launch_tiled(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill, int carry_bits,
+                 int32_t* out, int n, int h, int w, int kh, int kw, int shift, int post,
+                 cudaStream_t stream) {
   const size_t win = static_cast<size_t>(kTileH + kh - 1) * (kTileW + kw - 1) * sizeof(int32_t);
   const size_t rom_bytes =
       kRomInSmem ? static_cast<size_t>(kh) * kw * rom_len * sizeof(int32_t) : 0;
   conv_pass_kcm_tiled_kernel<kRomInSmem><<<pass_grid(n, h, w), dim3(kTileW, kTileH),
                                            win + rom_bytes, stream>>>(
-      x, rom, rom_len, out, h, w, kh, kw, shift, post);
+      x, rom, rom_len, fill, carry_bits, out, h, w, kh, kw, shift, post);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The bank's tap shapes (3x3 direct, 3 and 5 taps a separable pass) run the
 // persistent kernel compiled for their shape; any other shape the tiled one.
 template <bool kRomInSmem>
-int launch_kcm_shape(const int32_t* x, const int32_t* rom, int rom_len, int32_t* out, int n,
-                     int h, int w, int kh, int kw, int shift, int post, cudaStream_t stream) {
-#define REPRO_KCM_SHAPE(KH, KW)                                                           \
-  if (kh == KH && kw == KW)                                                               \
-    return launch_kcm<KH, KW, kRomInSmem, false, true>(x, rom, rom_len, out, n, h, w,    \
-                                                       shift, post, stream);
+int launch_kcm_shape(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill,
+                     int carry_bits, int32_t* out, int n, int h, int w, int kh, int kw,
+                     int shift, int post, cudaStream_t stream) {
+#define REPRO_KCM_SHAPE(KH, KW)                                                            \
+  if (kh == KH && kw == KW)                                                                \
+    return launch_kcm<KH, KW, kRomInSmem, false, true>(x, rom, rom_len, fill, carry_bits, \
+                                                       out, n, h, w, shift, post, stream);
   REPRO_KCM_SHAPE(3, 3)
   REPRO_KCM_SHAPE(5, 5)
   REPRO_KCM_SHAPE(1, 3)
@@ -241,7 +251,8 @@ int launch_kcm_shape(const int32_t* x, const int32_t* rom, int rom_len, int32_t*
   REPRO_KCM_SHAPE(1, 5)
   REPRO_KCM_SHAPE(5, 1)
 #undef REPRO_KCM_SHAPE
-  return launch_tiled<kRomInSmem>(x, rom, rom_len, out, n, h, w, kh, kw, shift, post, stream);
+  return launch_tiled<kRomInSmem>(x, rom, rom_len, fill, carry_bits, out, n, h, w, kh, kw,
+                                  shift, post, stream);
 }
 
 // conv_pass_recurse on the bank's tap shapes: the staging of the persistent
@@ -344,16 +355,21 @@ int recurse_tiled(const RecursePass& a) {
 using namespace repro;
 
 // x, out: device (n, h, w) int32; rom: device (kh*kw, rom_len) int32 with the
-// coefficient signs baked in. Returns cudaGetLastError() after the launch.
-extern "C" int conv_pass_kcm(const int32_t* x, const int32_t* rom, int rom_len,
-                             int32_t* out, int n, int h, int w, int kh, int kw,
+// coefficient signs baked in; fill: what a gather past the ROM gives;
+// carry_bits: 16 or 32, the reference's carry (RomStack in
+// repro_torch.filters.conv). Returns cudaGetLastError() after the launch.
+extern "C" int conv_pass_kcm(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill,
+                             int carry_bits, int32_t* out, int n, int h, int w, int kh, int kw,
                              int shift, int post, cudaStream_t stream) {
-  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK || n < 1 || h < 1 || w < 1)
+  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK || n < 1 || h < 1 || w < 1 ||
+      (carry_bits != 16 && carry_bits != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t rom_bytes = static_cast<size_t>(kh) * kw * rom_len * sizeof(int32_t);
   return rom_bytes <= kSmemRomBytes
-             ? launch_kcm_shape<true>(x, rom, rom_len, out, n, h, w, kh, kw, shift, post, stream)
-             : launch_kcm_shape<false>(x, rom, rom_len, out, n, h, w, kh, kw, shift, post, stream);
+             ? launch_kcm_shape<true>(x, rom, rom_len, fill, carry_bits, out, n, h, w, kh, kw,
+                                      shift, post, stream)
+             : launch_kcm_shape<false>(x, rom, rom_len, fill, carry_bits, out, n, h, w, kh, kw,
+                                       shift, post, stream);
 }
 
 // conv_pass_kcm at 3x3 taps and an 8-bit ROM stack (in shared memory)
@@ -363,15 +379,19 @@ extern "C" int conv_pass_kcm(const int32_t* x, const int32_t* rom, int rom_len,
 // conv_pass_kcm); 5 as 4 without the taps (the window's centre pixel out:
 // staging and stores alone, other bytes by design).
 extern "C" int conv_pass_kcm_variant(const int32_t* x, const int32_t* rom, int rom_len,
-                                     int32_t* out, int n, int h, int w, int kh, int kw,
-                                     int shift, int post, int variant,
+                                     int32_t fill, int carry_bits, int32_t* out, int n, int h,
+                                     int w, int kh, int kw, int shift, int post, int variant,
                                      cudaStream_t stream) {
   const size_t rom_bytes = static_cast<size_t>(kh) * kw * rom_len * sizeof(int32_t);
-  if (kh != 3 || kw != 3 || n < 1 || h < 1 || w < 1 || rom_bytes > kSmemRomBytes)
+  if (kh != 3 || kw != 3 || n < 1 || h < 1 || w < 1 || rom_bytes > kSmemRomBytes ||
+      (carry_bits != 16 && carry_bits != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto args = std::make_tuple(x, rom, rom_len, out, n, h, w, shift, post, stream);
+  const auto args =
+      std::make_tuple(x, rom, rom_len, fill, carry_bits, out, n, h, w, shift, post, stream);
   switch (variant) {
-    case 0: return launch_tiled<true>(x, rom, rom_len, out, n, h, w, kh, kw, shift, post, stream);
+    case 0:
+      return launch_tiled<true>(x, rom, rom_len, fill, carry_bits, out, n, h, w, kh, kw, shift,
+                                post, stream);
     case 1: return std::apply(launch_kcm<3, 3, true, true, false>, args);
     case 2: return std::apply(launch_kcm<3, 3, true, true, true>, args);
     case 3: return std::apply(launch_kcm<3, 3, true, false, false>, args);
@@ -384,7 +404,7 @@ extern "C" int conv_pass_kcm_variant(const int32_t* x, const int32_t* rom, int r
 // taps: host (kh*kw) int32 coefficient table; plan: host (kh*kw,
 // kPlanWords) int32 plan words (repro_torch.filters.recurse_plan.plan_words)
 // or null. With a plan the persistent kernel runs, for the tap shapes it is
-// compiled for (repro_torch.filters.conv.recurse_route says which); with
+// compiled for (repro_torch.filters.conv.kernel_route says which); with
 // none the tiled kernel of the first design, for any shape. method:
 // repro::Method; num_ecc is read by the tiled kMitchellEcc only (the plan
 // holds the stages).

@@ -3,7 +3,9 @@
 //   r[y, x]   = sum over kw row taps of sgn(t) * sgn(c) * mult(|t|, |c|)   at nbits
 //   out[y, x] = post( sum over kh column taps of the same on r )           at nbits2
 // with zero padding and wrapping int32 sums. Bit-identical to a row pass with
-// post='none' followed by a column pass (the two-pass dataflow).
+// post='none' followed by a column pass in an int32 carry; in the kcm
+// variant an operand at or past a ROM adds sgn(t) * that ROM's fill, the
+// reference's jnp.take fill (kcm_term).
 //
 // Replaces the Pallas kernel `_fused_kernel` (src/repro/filters/conv.py:383),
 // launched by `_fused_call` (src/repro/filters/conv.py:446), in both of its
@@ -14,34 +16,47 @@
 //
 // What bounds it on an H100: the kcm variant moves about 8 bytes of HBM per
 // pixel (int32 in, int32 out) -- the row-pass intermediate never leaves the
-// SM -- so it is bound by memory bandwidth, with the column pass's gathers
-// from the 16-bit ROMs served by L2; the recurse variant is bound by integer
-// operations per tap (the column pass runs at 16 bits: up to 64 2x2 leaves
-// a REFMLM tap, of which the plan keeps only the non-zero digits' ones).
+// SM -- so it is bound by memory bandwidth, with the gathers served by
+// shared memory; the recurse variant is bound by integer operations per tap
+// (the column pass runs at 16 bits: up to 64 2x2 leaves a REFMLM tap, of
+// which the plan keeps only the non-zero digits' ones).
 //
-// fused_separable_kcm: grid = (tiles_x, tiles_y, N) over 32 x 16 output
-// tiles, one output pixel per thread. The block stages its (16 + kh - 1) x
-// (32 + kw - 1) input window in shared memory (zeros outside the image),
-// computes the row pass for its 16 rows plus kh - 1 halo rows into an int32
-// band in shared memory, synchronises, then runs the column pass and the
-// epilogue. Band rows outside the image are 0, exactly what the reference's
-// zero-padded input gives. An 8-bit ROM (<= 16 KB) is staged in shared
-// memory; a 16-bit ROM (65,536 entries per tap, too large for the 227 KB of
-// shared memory) is read from global memory through the read-only path and
-// stays in L2. fused_separable_recurse runs the same design (the first
-// design) for tap shapes other than 3x3 and 5x5, and whenever its entry is
-// given no plans.
+// Both variants at 3x3 and 5x5 taps (the bank's) run on the persistent grid
+// and double-buffered cp.async window of staging.cuh over 64 x 32 tiles.
+// The block's 128 threads compute the row pass for the tile's 32 + kh - 1
+// band rows into shared memory, a thread half the band rows of one column
+// (no divide per element); after a barrier each thread runs the column
+// pass for 16 rows of its column, each band element read once and reused
+// for the kh tap rows from registers.
 //
-// fused_separable_recurse at 3x3 and 5x5 taps (the bank's): the persistent
-// grid and double-buffered cp.async window of staging.cuh over 64 x 32
-// tiles. The block's 128 threads compute the row pass for the tile's 32 +
-// kh - 1 band rows into shared memory, a thread half the band rows of one
-// column (no divide per element); after a barrier each thread runs the
-// column pass for 16 rows of its column, each band element split once and
-// reused for the kh tap rows from registers. Both passes take every
-// coefficient-only part of a product from a host plan
-// (repro_torch.filters.recurse_plan) through the tap policies of
-// multipliers.cuh, compiled per shape and per policy pair.
+// fused_separable_kcm_tiles_kernel stages once a block the 8-bit row ROMs
+// (<= 16 KB) and, of each 16-bit column ROM (65,536 entries a tap, more than
+// shared memory holds), only the prefix the row pass can reach: |row sum|
+// <= the row stack's bound (4080 for the bank's refmlm and exact tables),
+// computed on the host from the row ROMs (column_prefix in
+// repro_torch.filters.conv) and stored as int16 when every entry in it
+// fits, else int32. A band row whose values lie within the prefix on every
+// lane of the warp (a vote) gathers from shared memory alone; otherwise a
+// value past the prefix (an operand past the row ROM) is gathered from
+// global memory, and one past the column ROM gets the fill, so the bytes
+// do not depend on the prefix.
+//
+// fused_separable_recurse_tiles_kernel takes every coefficient-only part
+// of a product from a host plan (repro_torch.filters.recurse_plan) through
+// the tap policies of multipliers.cuh, compiled per shape and per policy
+// pair; a band element is split once and reused for the kh tap rows.
+//
+// Other tap shapes run the tiled kernels of the first design: grid =
+// (tiles_x, tiles_y, N) over 32 x 16 output tiles, one output pixel per
+// thread, the (16 + kh - 1) x (32 + kw - 1) window staged with stage_window
+// for every tile, an int32 band in shared memory; an 8-bit ROM (<= 16 KB)
+// staged for every tile, a 16-bit one read from global memory. Each entry
+// runs its tiled kernel at any shape when it is given no plans (recurse)
+// or a zero prefix length (kcm): measurement variant 0.
+#include <tuple>
+#include <type_traits>
+#include <utility>
+
 #include "staging.cuh"
 
 namespace repro {
@@ -71,9 +86,9 @@ __device__ __forceinline__ void row_pass(int32_t* band, const int32_t* win, int 
 template <bool kRowInSmem, bool kColInSmem>
 __global__ void __launch_bounds__(kTileW * kTileH)
 fused_separable_kcm_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ row_rom,
-                           int row_len, const int32_t* __restrict__ col_rom, int col_len,
-                           int32_t* __restrict__ out, int h, int w, int kh, int kw,
-                           int shift, int post) {
+                           int row_len, int32_t row_fill, const int32_t* __restrict__ col_rom,
+                           int col_len, int32_t col_fill, int32_t* __restrict__ out, int h,
+                           int w, int kh, int kw, int shift, int post) {
   extern __shared__ int32_t smem[];
   const int ww = kTileW + kw - 1, bh = kTileH + kh - 1;
   int32_t* win = smem;
@@ -96,7 +111,7 @@ fused_separable_kcm_kernel(const int32_t* __restrict__ x, const int32_t* __restr
   stage_window(win, img, h, w, y0 - kh / 2, x0 - kw / 2, bh, ww);
   __syncthreads();
   row_pass(band, win, h, w, x0, y0, kh, kw,
-           [&](int dj, int32_t t) { return kcm_term(rtab, row_len, dj, t); });
+           [&](int dj, int32_t t) { return kcm_term(rtab, row_len, dj, t, row_fill); });
   __syncthreads();
 
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -104,7 +119,7 @@ fused_separable_kcm_kernel(const int32_t* __restrict__ x, const int32_t* __restr
   if (ox >= w || oy >= h) return;
   uint32_t acc = 0u;
   for (int di = 0; di < kh; ++di)
-    acc += kcm_term(ctab, col_len, di, band[(ty + di) * kTileW + tx]);
+    acc += kcm_term(ctab, col_len, di, band[(ty + di) * kTileW + tx], col_fill);
   out[blockIdx.z * plane + static_cast<size_t>(oy) * w + ox] = apply_post(acc, post, shift);
 }
 
@@ -215,6 +230,172 @@ fused_separable_recurse_tiles_kernel(const int32_t* __restrict__ x,
   });
 }
 
+// The column ROMs as the persistent fused kcm kernel reads them: entries
+// [0, len) of each tap from the prefix in shared memory (int16 or int32, as
+// column_prefix chose from the data), the rest of the ROM from global
+// memory, and the fill past it.
+template <class Prefix>
+struct ColumnRoms {
+  const Prefix* prefix;                // KH x len, shared memory
+  int len;
+  const int32_t* __restrict__ rom;     // KH x rom_len, global memory
+  int rom_len;
+  int32_t fill;
+
+  __device__ __forceinline__ int32_t at(int tap, uint32_t mag) const {
+    if (mag < static_cast<uint32_t>(len)) return prefix[tap * len + mag];
+    return mag < static_cast<uint32_t>(rom_len) ? __ldg(rom + static_cast<size_t>(tap) * rom_len + mag)
+                                                : fill;
+  }
+};
+
+// fused_separable_kcm on the bank's tap shapes (3x3, 5x5). kRowInSmem: the
+// row ROM stack (8-bit) is staged in shared memory once a block, else read
+// from global memory; Prefix: the column prefix's element type.
+template <int KH, int KW, bool kRowInSmem, class Prefix>
+__global__ void __launch_bounds__(kKcmThreads)
+fused_separable_kcm_tiles_kernel(const int32_t* __restrict__ x,
+                                 const int32_t* __restrict__ row_rom, int row_len,
+                                 int32_t row_fill, const int32_t* __restrict__ col_rom,
+                                 int col_len, int32_t col_fill, int prefix_len,
+                                 int32_t* __restrict__ out, int n, int h, int w, int shift,
+                                 int post, int vec) {
+  static_assert(band_rows(KH) % kKcmGroups == 0, "band rows split evenly over the groups");
+  extern __shared__ __align__(16) int32_t smem[];
+  const KcmWindow ws(KH, KW);
+  int32_t* band = smem + 2 * ws.elems();
+  int32_t* srow = band + band_rows(KH) * kKcmTileW;
+  Prefix* prefix = reinterpret_cast<Prefix*>(srow + (kRowInSmem ? KW * row_len : 0));
+  // once a block: the row ROMs and the column prefix (persistent_tiles
+  // synchronises before the first tile)
+  if constexpr (kRowInSmem) stage_rom(srow, row_rom, KW * row_len);
+  const int tid = threadIdx.y * kKcmTileW + threadIdx.x;
+  for (int t = 0; t < KH; ++t)
+    for (int i = tid; i < prefix_len; i += kKcmThreads)
+      prefix[t * prefix_len + i] =
+          static_cast<Prefix>(__ldg(col_rom + static_cast<size_t>(t) * col_len + i));
+  const int32_t* rtab = kRowInSmem ? srow : row_rom;
+  const ColumnRoms<Prefix> cols{prefix, prefix_len, col_rom, col_len, col_fill};
+  const int tx = threadIdx.x, r0 = threadIdx.y * kKcmRows;
+  const int c = tx + ws.pad_l - KW / 2;              // window column of tap column 0
+  const size_t plane = static_cast<size_t>(h) * w;
+  persistent_tiles<KH, KW>(x, n, h, w, vec, smem,
+                           [&](const int32_t* win, int img, int y0, int x0) {
+    // row pass: band row r = window row r = image row y0 - KH/2 + r (a
+    // zero window row outside the image gives a zero band row); a thread
+    // takes half the band rows of its column
+    constexpr int kHalf = band_rows(KH) / kKcmGroups;
+    const int b0 = threadIdx.y * kHalf;
+#pragma unroll
+    for (int r = 0; r < kHalf; ++r) {
+      const int32_t* wrow = win + (b0 + r) * ws.cols + c;
+      uint32_t sum = 0u;
+#pragma unroll
+      for (int dj = 0; dj < KW; ++dj) sum += kcm_term(rtab, row_len, dj, wrow[dj], row_fill);
+      band[(b0 + r) * kKcmTileW + tx] = static_cast<int32_t>(sum);
+    }
+    __syncthreads();
+    // column pass: band row r0 + br holds tap di = br - i of output row i,
+    // so each band element is read once and its |v|, sgn(v) reused for
+    // every tap from registers; int32 carry, as the reference's fused pass.
+    // A band row within the prefix on every lane of the warp gathers from
+    // shared memory alone.
+    uint32_t acc[kKcmRows] = {};
+#pragma unroll
+    for (int br = 0; br < kKcmRows + KH - 1; ++br) {
+      const int32_t v = band[(r0 + br) * kKcmTileW + tx];
+      const uint32_t mag = static_cast<uint32_t>(magnitude(v));
+      const int s = sign_of(v);
+      auto taps = [&](auto product) {
+#pragma unroll
+        for (int i = 0; i < kKcmRows; ++i) {
+          const int di = br - i;
+          if (di >= 0 && di < KH) acc[i] += signed_term(s, product(di));
+        }
+      };
+      if (warp_below(mag, prefix_len))
+        taps([&](int di) { return static_cast<int32_t>(prefix[di * prefix_len + mag]); });
+      else
+        taps([&](int di) { return cols.at(di, mag); });
+    }
+    store_rows(out + img * plane, acc, h, w, x0 + tx, y0 + r0, shift, post);
+  });
+}
+
+// The arguments of one fused kcm pass, as the C entry point takes them.
+struct FusedKcm {
+  const int32_t* x;
+  const int32_t* row_rom;
+  int row_len;
+  int32_t row_fill;
+  const int32_t* col_rom;
+  int col_len;
+  int32_t col_fill;
+  int prefix_len, prefix_int16;
+  int32_t* out;
+  int n, h, w, kh, kw, shift, post;
+
+  bool row_in_smem() const {
+    return static_cast<size_t>(kw) * row_len * sizeof(int32_t) <= kSmemRomBytes;
+  }
+  // dynamic shared memory of the persistent kernel: two windows, the band,
+  // the row ROMs (when staged) and the column prefix
+  size_t smem() const {
+    const size_t words = 2 * KcmWindow(kh, kw).elems() + band_rows(kh) * kKcmTileW +
+                         (row_in_smem() ? static_cast<size_t>(kw) * row_len : 0);
+    return words * sizeof(int32_t) +
+           static_cast<size_t>(kh) * prefix_len * (prefix_int16 ? sizeof(int16_t) : sizeof(int32_t));
+  }
+};
+
+// f(kernel) with the persistent instance for a's shape, row ROM placement
+// and prefix type; any other shape is refused.
+template <class F>
+int fused_kcm_instance(const FusedKcm& a, F&& f) {
+  auto pick = [&](auto shape) {
+    constexpr int K = decltype(shape)::value;
+    if (a.row_in_smem())
+      return a.prefix_int16 ? f(fused_separable_kcm_tiles_kernel<K, K, true, int16_t>)
+                            : f(fused_separable_kcm_tiles_kernel<K, K, true, int32_t>);
+    return a.prefix_int16 ? f(fused_separable_kcm_tiles_kernel<K, K, false, int16_t>)
+                          : f(fused_separable_kcm_tiles_kernel<K, K, false, int32_t>);
+  };
+  if (a.kh == 3 && a.kw == 3) return pick(std::integral_constant<int, 3>{});
+  if (a.kh == 5 && a.kw == 5) return pick(std::integral_constant<int, 5>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int fused_kcm_persistent(const FusedKcm& a, cudaStream_t stream) {
+  const size_t smem = a.smem();
+  const int vec = a.w % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  return fused_kcm_instance(a, [&](auto kernel) {
+    return launch_persistent(kernel, smem, stream, a.n, a.h, a.w, a.x, a.row_rom, a.row_len,
+                             a.row_fill, a.col_rom, a.col_len, a.col_fill, a.prefix_len, a.out,
+                             a.n, a.h, a.w, a.shift, a.post, vec);
+  });
+}
+
+// The tiled kcm kernel (the first design, variant 0): any shape.
+int fused_kcm_tiled(const FusedKcm& a, cudaStream_t stream) {
+  const size_t row_bytes = static_cast<size_t>(a.kw) * a.row_len * sizeof(int32_t);
+  const size_t col_bytes = static_cast<size_t>(a.kh) * a.col_len * sizeof(int32_t);
+  const bool row_smem = row_bytes <= kSmemRomBytes, col_smem = col_bytes <= kSmemRomBytes;
+  const size_t smem =
+      fused_smem(a.kh, a.kw) + (row_smem ? row_bytes : 0) + (col_smem ? col_bytes : 0);
+  const dim3 grid = fused_grid(a.n, a.h, a.w), block(kTileW, kTileH);
+  const auto args = std::make_tuple(a.x, a.row_rom, a.row_len, a.row_fill, a.col_rom,
+                                    a.col_len, a.col_fill, a.out, a.h, a.w, a.kh, a.kw,
+                                    a.shift, a.post);
+  auto run = [&](auto kernel) {
+    std::apply([&](auto... v) { kernel<<<grid, block, smem, stream>>>(v...); }, args);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (row_smem && col_smem) return run(fused_separable_kcm_kernel<true, true>);
+  if (row_smem) return run(fused_separable_kcm_kernel<true, false>);
+  if (col_smem) return run(fused_separable_kcm_kernel<false, true>);
+  return run(fused_separable_kcm_kernel<false, false>);
+}
+
 // The arguments of one fused recurse pass, as the C entry points take them.
 struct FusedPass {
   const int32_t* x;
@@ -301,38 +482,55 @@ int fused_tiled(const FusedPass& a) {
 using namespace repro;
 
 // x, out: device (n, h, w) int32; row_rom: device (kw, row_len) int32 at
-// nbits; col_rom: device (kh, col_len) int32 at nbits2; signs baked in.
-// Returns cudaGetLastError() after the launch.
+// nbits; col_rom: device (kh, col_len) int32 at nbits2; signs baked in;
+// row_fill, col_fill: what a gather past each ROM gives (both passes carry
+// int32). prefix_len > 0: the persistent kernel, for 3x3 and 5x5 taps
+// (repro_torch.filters.conv.kernel_route says which), with entries [0,
+// prefix_len) of each column ROM staged in shared memory, as int16 when
+// prefix_int16 (column_prefix); prefix_len 0: the tiled kernel of the first
+// design, for any shape. Returns cudaGetLastError() after the launch.
 extern "C" int fused_separable_kcm(const int32_t* x, const int32_t* row_rom, int row_len,
-                                   const int32_t* col_rom, int col_len, int32_t* out,
-                                   int n, int h, int w, int kh, int kw, int shift,
+                                   int32_t row_fill, const int32_t* col_rom, int col_len,
+                                   int32_t col_fill, int prefix_len, int prefix_int16,
+                                   int32_t* out, int n, int h, int w, int kh, int kw, int shift,
                                    int post, cudaStream_t stream) {
-  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK)
+  if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK || n < 1 || h < 1 || w < 1 ||
+      row_len < 1 || col_len < 1 || prefix_len < 0 || prefix_len > col_len)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t row_bytes = static_cast<size_t>(kw) * row_len * sizeof(int32_t);
-  const size_t col_bytes = static_cast<size_t>(kh) * col_len * sizeof(int32_t);
-  const bool row_smem = row_bytes <= kSmemRomBytes, col_smem = col_bytes <= kSmemRomBytes;
-  const size_t smem = fused_smem(kh, kw) + (row_smem ? row_bytes : 0) + (col_smem ? col_bytes : 0);
-  const dim3 grid = fused_grid(n, h, w), block(kTileW, kTileH);
-  if (row_smem && col_smem)
-    fused_separable_kcm_kernel<true, true><<<grid, block, smem, stream>>>(
-        x, row_rom, row_len, col_rom, col_len, out, h, w, kh, kw, shift, post);
-  else if (row_smem)
-    fused_separable_kcm_kernel<true, false><<<grid, block, smem, stream>>>(
-        x, row_rom, row_len, col_rom, col_len, out, h, w, kh, kw, shift, post);
-  else if (col_smem)
-    fused_separable_kcm_kernel<false, true><<<grid, block, smem, stream>>>(
-        x, row_rom, row_len, col_rom, col_len, out, h, w, kh, kw, shift, post);
-  else
-    fused_separable_kcm_kernel<false, false><<<grid, block, smem, stream>>>(
-        x, row_rom, row_len, col_rom, col_len, out, h, w, kh, kw, shift, post);
-  return static_cast<int>(cudaGetLastError());
+  const FusedKcm a{x, row_rom, row_len, row_fill, col_rom, col_len, col_fill, prefix_len,
+                   prefix_int16, out, n, h, w, kh, kw, shift, post};
+  return prefix_len == 0 ? fused_kcm_tiled(a, stream) : fused_kcm_persistent(a, stream);
+}
+
+// What the persistent fused kcm kernel takes for these arguments (as
+// fused_separable_kcm gets them, no tensor needed): info[0] its dynamic
+// shared memory a block in bytes, info[1] the blocks an SM holds at once,
+// info[2] its registers a thread, info[3] its local memory a thread in
+// bytes (spills). The stream is not used.
+extern "C" int fused_separable_kcm_info(int row_len, int col_len, int prefix_len,
+                                        int prefix_int16, int kh, int kw, int* info,
+                                        cudaStream_t) {
+  if (prefix_len < 1 || prefix_len > col_len || info == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FusedKcm a{nullptr, nullptr, row_len, 0, nullptr, col_len, 0, prefix_len,
+                   prefix_int16, nullptr, 1, 1, 1, kh, kw, 0, 0};
+  return fused_kcm_instance(a, [&](auto kernel) {
+    int per_sm = 0, sms = 0;
+    cudaFuncAttributes attr{};
+    cudaError_t err = resident_blocks(kernel, a.smem(), per_sm, sms);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    info[0] = static_cast<int>(a.smem());
+    info[1] = per_sm;
+    info[2] = attr.numRegs;
+    info[3] = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(err);
+  });
 }
 
 // row: host (kw,) and col: host (kh,) int32 coefficients; row_plan, col_plan:
 // host plan words of each (repro_torch.filters.recurse_plan.plan_words, at
 // nbits and nbits2), or both null. With plans the persistent kernel runs,
-// for 3x3 and 5x5 taps (repro_torch.filters.conv.recurse_route says
+// for 3x3 and 5x5 taps (repro_torch.filters.conv.kernel_route says
 // which); with none the tiled kernel of the first design, for any shape.
 // method: repro::Method; num_ecc is read by the tiled kMitchellEcc only
 // (the plans hold the stages).

@@ -163,15 +163,35 @@ __device__ __forceinline__ uint32_t signed_term(int s, int32_t p) {
   return s > 0 ? u : (s < 0 ? 0u - u : 0u);
 }
 
-// KCM gather: ROM row `tap` at |x|, sign of x applied. Operands beyond the
-// ROM are outside the pass's contract (|x| < 2**nbits); they read no memory
-// and add nothing, and the plain version does the same.
+// KCM gather: ROM row `tap` at |x|, sign of x applied. An operand at or
+// past the ROM (|x| >= rom_len, x = -2**31 too) reads no memory and gives
+// sgn(x) * fill: the reference's jnp.take fill, the minimum of its narrow
+// ROM dtype (-2**15 for an int16 stack, -2**31 for int32). Written as one
+// guarded load (0 < |x| < rom_len) and a select, which compiles to a
+// predicated load with no branch: faster on the H100 than an early return
+// for either case (PERF.md).
 __device__ __forceinline__ uint32_t kcm_term(const int32_t* rom, int rom_len,
-                                             int tap, int32_t x) {
+                                             int tap, int32_t x, int32_t fill) {
   const uint32_t mag = static_cast<uint32_t>(magnitude(x));
-  if (mag == 0u || mag >= static_cast<uint32_t>(rom_len)) return 0u;
-  const int32_t p = rom[static_cast<size_t>(tap) * rom_len + mag];
+  const uint32_t last = static_cast<uint32_t>(rom_len - 1);
+  const int32_t entry = mag - 1u < last ? rom[static_cast<size_t>(tap) * rom_len + mag] : 0;
+  const int32_t p = mag > last ? fill : entry;
   return x > 0 ? static_cast<uint32_t>(p) : 0u - static_cast<uint32_t>(p);
+}
+
+// True, on every lane, when every lane of the warp holds an operand below
+// `len`. Every lane of the warp calls it.
+__device__ __forceinline__ bool warp_below(uint32_t mag, int len) {
+  return __all_sync(0xffffffffu, mag < static_cast<uint32_t>(len));
+}
+
+// The reference's int16 carry (a direct kcm pass whose ROM bound is below
+// 2**15): the low 16 bits of the wrapping sum, sign-extended; the sum of
+// wrapping int16 adds is the same modulo 2**16. carry_bits 32: unchanged.
+__device__ __forceinline__ uint32_t narrow_carry(uint32_t acc, int carry_bits) {
+  return carry_bits == 16
+             ? static_cast<uint32_t>(static_cast<int32_t>(static_cast<int16_t>(acc & 0xffffu)))
+             : acc;
 }
 
 // The reference's apply_post on the int32 sum: post 0 = raw ('none'),

@@ -147,40 +147,55 @@ __device__ __forceinline__ void store_rows(int32_t* __restrict__ img_out, const 
   }
 }
 
+// Blocks of `kernel` that one SM holds at once at `smem` bytes of dynamic
+// shared memory, and the SMs of the current device. The limit is raised to
+// the largest size asked for (never lowered: an instance may run at several
+// sizes) and the counts are cached per kernel, device and size: the
+// queries cost more host time than a small launch.
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, int& per_sm, int& sms) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, std::pair<int, int>> resident;
+  static std::map<std::pair<const void*, int>, size_t> limit;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  auto it = resident.find({key, dev, smem});
+  if (it == resident.end()) {
+    size_t& set = limit[{key, dev}];
+    if (smem > set) {
+      err = cudaFuncSetAttribute(key, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err == cudaSuccess) set = smem;
+    }
+    int count = 0, sm_count = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, key, kKcmThreads, smem);
+    if (err == cudaSuccess && count < 1) err = cudaErrorInvalidConfiguration;
+    if (err != cudaSuccess) return err;
+    it = resident.emplace(std::make_tuple(key, dev, smem), std::make_pair(count, sm_count)).first;
+  }
+  per_sm = it->second.first;
+  sms = it->second.second;
+  return cudaSuccess;
+}
+
 // Launch a persistent kernel with `kernel_args` over the tiles of an (n, h,
 // w) batch: as many blocks as the SMs hold at once at this shared-memory
-// size, at most one a tile. The limit and the resident count are queried
-// once per kernel, device and size: the queries cost more host time than a
-// small launch.
+// size, at most one a tile.
 template <class Kernel, class... Args>
 int launch_persistent(Kernel kernel, size_t smem, cudaStream_t stream, int n, int h, int w,
                       Args... kernel_args) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, size_t>, int> resident;
-  const void* key = reinterpret_cast<const void*>(kernel);
-  int dev = 0, blocks = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    auto it = resident.find({key, dev, smem});
-    if (it == resident.end()) {
-      int sms = 0, per_sm = 0;
-      err = cudaFuncSetAttribute(key, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, key, kKcmThreads, smem);
-      if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
-      if (err != cudaSuccess) return static_cast<int>(err);
-      it = resident.emplace(std::make_tuple(key, dev, smem), per_sm * sms).first;
-    }
-    blocks = it->second;
-  }
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = resident_blocks(kernel, smem, per_sm, sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = static_cast<long long>(n) * ((w + kKcmTileW - 1) / kKcmTileW) *
                           ((h + kKcmTileH - 1) / kKcmTileH);
-  blocks = static_cast<int>(std::min<long long>(tiles, blocks));
+  const int blocks = static_cast<int>(std::min<long long>(tiles, 1ll * per_sm * sms));
   kernel<<<blocks, dim3(kKcmTileW, kKcmGroups), smem, stream>>>(kernel_args...);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,10 +18,21 @@ a wrapping int32 sum, then `apply_post` (a rounding shift, then clip to
 'kcm' gathers from per-tap product ROMs computed by the selected
 multiplier (`repro_torch.core.kcm`, sign baked in), 'recurse' evaluates
 the multiplier per tap, 'auto' is 'kcm' (coefficients are always concrete
-host values here). Both give the same bytes. The recurse kernels take the
-coefficient side of every product from a host plan (`recurse_plan`) on
-the tap shapes their persistent kernels are compiled for
-(`recurse_route`); other shapes run their tiled kernels.
+host values here). Both give the same bytes for operands below 2**nbits.
+The recurse kernels take the coefficient side of every product from a
+host plan (`recurse_plan`), and the fused kcm kernel stages a prefix of
+its column ROMs (`column_prefix`), on the tap shapes their persistent
+kernels are compiled for (`kernel_route`); other shapes run their tiled
+kernels.
+
+The kcm passes give the reference's bytes for operands at or past the ROM
+too (|t| >= 2**nbits). The reference gathers with `jnp.take`, whose fill
+for such an index is the minimum of the narrow host stack's dtype (-2**15
+for an int16 stack, -2**31 for int32), and sums in the carry its bound
+analysis picks: int16 when `tables_acc_bound < 2**15`, where the sum
+wraps at 16 bits, else int32. A `RomStack` carries both facts with the
+device table; the fused pass keeps an int32 carry for both of its passes,
+as the reference's fused kernel does.
 
 A kernel wrapper launches its kernel for a CUDA tensor, and raises if the
 launch fails; it runs the plain version only for a CPU tensor. Each launch
@@ -34,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,20 +75,50 @@ _METHOD_CODES = {"exact": 0, "refmlm": 1, "refmlm_nc": 2, "mitchell": 3,
 # temporaries (64 int64 planes per pixel for 16-bit REFMLM).
 _PLAIN_CHUNK_PIXELS = 1 << 22
 
-# Tap shapes the persistent recurse kernels are compiled for (the bank's);
-# any other shape runs the tiled kernels. The C entries run the persistent
-# kernel when they are given a plan and the tiled one when they are not, so
-# this rule (`recurse_route`) is the only copy.
+# Tap shapes the persistent recurse kernels and the persistent fused kcm
+# kernel are compiled for (the bank's); any other shape runs the tiled
+# kernels. The C entries run the persistent kernel when they are given a
+# plan (a column prefix) and the tiled one when they are not, so this rule
+# (`kernel_route`) is the only copy.
 PERSISTENT_SHAPES = ((3, 3), (5, 5), (1, 3), (3, 1), (1, 5), (5, 1))
 FUSED_PERSISTENT_SHAPES = ((3, 3), (5, 5))
 
+# The fused kcm kernel's column-ROM prefix (`column_prefix`): its length is
+# rounded up to PREFIX_GRANULE entries, so the launcher's occupancy cache
+# sees few shared-memory sizes, and held to PREFIX_MAX_BYTES a block; an
+# operand past the prefix is gathered from global memory.
+PREFIX_GRANULE = 256
+PREFIX_MAX_BYTES = 96 * 1024
+# Kernels whose route (`kernel_route`) the wrappers pick.
+ROUTED = ("conv_pass_recurse", "fused_separable_recurse", "fused_separable_kcm")
+
 #: kernel name -> number of launches since the last `reset_launches()`.
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+#: (kernel name, 'persistent' | 'tiled') -> launches of that route, for ROUTED.
+ROUTE_LAUNCHES: dict[tuple[str, str], int] = {
+    (name, route): 0 for name in ROUTED for route in ("persistent", "tiled")}
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for key in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[key] = 0
+
+
+class RomStack(NamedTuple):
+    """A KCM ROM stack as the kcm passes read it, with the facts of the
+    reference's narrow host stack (`filter_tables`) that decide operands
+    at or past the ROM."""
+    table: torch.Tensor       # (taps, 2**nbits) int32, signs baked in
+    fill: int                 # a gather past the ROM: the host dtype's minimum
+    acc_bound: int            # `tables_acc_bound` of the host stack
+    int16_prefix: int         # entries [0, int16_prefix) of every tap fit int16
+
+    @property
+    def carry_bits(self) -> int:
+        """The reference's carry width for a direct pass from this stack."""
+        return 16 if self.acc_bound < (1 << 15) else 32
 
 
 # ------------------------------------------------------------ plain versions
@@ -104,17 +146,29 @@ def _tap_views(x: torch.Tensor, kh: int, kw: int):
         yield t, padded[:, di:di + h, dj:dj + w]
 
 
-def conv_pass_kcm_plain(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, *,
-                        shift: int, post: str) -> torch.Tensor:
-    """Plain PyTorch version of `conv_pass_kcm`: per tap, sgn(t) *
-    rom[tap][|t|]; operands beyond the ROM add nothing, as in the kernel."""
-    rom_len = rom.shape[1]
+def _kcm_sum(x: torch.Tensor, roms: RomStack, kh: int, kw: int,
+             carry_bits: int) -> torch.Tensor:
+    """Per pixel, sum over taps of sgn(t) * table[tap][|t|], `roms.fill`
+    for |t| past the ROM, wrapped to the carry (16 bits: the low half,
+    sign-extended) -> int32."""
+    table = roms.table
+    rom_len = table.shape[1]
     acc = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
     for t, tap in _tap_views(x, kh, kw):
         mag = tap.abs()
-        prod = rom[t].to(torch.int64)[mag.clamp(max=rom_len - 1)]
-        acc += torch.where(mag < rom_len, torch.sign(tap) * prod, 0)
-    return apply_post(wrap_int32(acc), post=post, shift=shift)
+        prod = table[t].to(torch.int64)[mag.clamp(max=rom_len - 1)]
+        acc += torch.sign(tap) * torch.where(mag < rom_len, prod, roms.fill)
+    if carry_bits == 16:
+        acc = ((acc + (1 << 15)) & 0xFFFF) - (1 << 15)
+    return wrap_int32(acc)
+
+
+def conv_pass_kcm_plain(x: torch.Tensor, roms: RomStack, kh: int, kw: int, *,
+                        shift: int, post: str) -> torch.Tensor:
+    """Plain PyTorch version of `conv_pass_kcm`: per tap, sgn(t) *
+    rom[tap][|t|], the fill past the ROM, in the stack's carry."""
+    return apply_post(_kcm_sum(x, roms, kh, kw, roms.carry_bits), post=post,
+                      shift=shift)
 
 
 def conv_pass_recurse_plain(x: torch.Tensor, taps: np.ndarray, *, method: str,
@@ -139,15 +193,33 @@ def conv_pass_recurse_plain(x: torch.Tensor, taps: np.ndarray, *, method: str,
     return out
 
 
-def fused_separable_kcm_plain(x: torch.Tensor, row_rom: torch.Tensor,
-                              col_rom: torch.Tensor, *, shift: int,
-                              post: str) -> torch.Tensor:
-    """Plain PyTorch version of `fused_separable_kcm`: the row pass with
-    post='none', then the column pass."""
-    rows = conv_pass_kcm_plain(x, row_rom, 1, row_rom.shape[0], shift=0,
-                               post="none")
-    return conv_pass_kcm_plain(rows, col_rom, col_rom.shape[0], 1, shift=shift,
-                               post=post)
+def fused_separable_kcm_plain(x: torch.Tensor, row: RomStack, col: RomStack,
+                              *, shift: int, post: str) -> torch.Tensor:
+    """Plain PyTorch version of `fused_separable_kcm`: the row pass, then
+    the column pass, each with its own ROM's fill and both in an int32
+    carry whatever the stacks' bounds."""
+    rows = _kcm_sum(x, row, 1, row.table.shape[0], 32)
+    return apply_post(_kcm_sum(rows, col, col.table.shape[0], 1, 32), post=post,
+                      shift=shift)
+
+
+def column_prefix(row: RomStack, col: RomStack) -> tuple[int, bool]:
+    """-> (length, int16) of the column-ROM prefix the persistent fused kcm
+    kernel stages in shared memory: every |row sum| that in-range operands
+    give (at most the row stack's bound) indexes it, rounded up to
+    PREFIX_GRANULE, within the column ROM and PREFIX_MAX_BYTES; int16 iff
+    every entry in it fits int16. Any operand past it is gathered from
+    global memory (or is past the ROM), so the bytes do not depend on it."""
+    kh, col_len = col.table.shape
+    need = -(-(1 + row.acc_bound) // PREFIX_GRANULE) * PREFIX_GRANULE
+
+    def cap(entry_bytes: int) -> int:
+        return PREFIX_MAX_BYTES // (entry_bytes * kh) // PREFIX_GRANULE * PREFIX_GRANULE
+
+    length = min(col_len, need, cap(2))
+    if length > col.int16_prefix:
+        length = min(length, cap(4))
+    return length, length <= col.int16_prefix
 
 
 def fused_separable_recurse_plain(x: torch.Tensor, row: np.ndarray,
@@ -165,24 +237,29 @@ def fused_separable_recurse_plain(x: torch.Tensor, row: np.ndarray,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {    # the entry points' argument types, the stream aside
-    "conv_pass_kcm": ("conv_pass", (_P, _P, _I, _P) + (_I,) * 7),
+    "conv_pass_kcm": ("conv_pass", (_P, _P, _I, _I, _I, _P) + (_I,) * 7),
     "conv_pass_recurse": ("conv_pass", (_P, _P, _P, _I, _I, _I, _P) + (_I,) * 7),
-    "fused_separable_kcm": ("fused_separable", (_P, _P, _I, _P, _I, _P) + (_I,) * 7),
+    "fused_separable_kcm": ("fused_separable",
+                            (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P) + (_I,) * 7),
     "fused_separable_recurse": ("fused_separable",
                                 (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P) + (_I,) * 7),
 }
 
 
-def _launch(name: str, x: torch.Tensor, args_for) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, args_for,
+            route: str | None = None) -> torch.Tensor:
     """Launch kernel `name` on the current stream of x's device with the C
     arguments (x, *args_for(out), stream), `out` allocated here; raise if
-    the launch failed. An empty batch launches nothing."""
+    the launch failed. An empty batch launches nothing. `route`: the
+    kernel_route the wrapper picked, for the ROUTED kernels."""
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     library, argtypes = _SIGNATURES[name]
     launch(library, name, argtypes, x.device, x.data_ptr(), *args_for(out))
     LAUNCHES[name] += 1
+    if route is not None:
+        ROUTE_LAUNCHES[(name, route)] += 1
     return out
 
 
@@ -200,7 +277,7 @@ def _check_x(x: torch.Tensor) -> None:
                          f"{tuple(getattr(x, 'shape', ()))}")
 
 
-def _check_cuda(x: torch.Tensor, kh: int, kw: int, *roms: torch.Tensor) -> None:
+def _check_cuda(x: torch.Tensor, kh: int, kw: int, *roms: RomStack) -> None:
     """What the kernels take: contiguous int32 on one CUDA device, taps up
     to MAX_K, a grid within CUDA's limits."""
     if x.device.type != "cuda":
@@ -213,8 +290,9 @@ def _check_cuda(x: torch.Tensor, kh: int, kw: int, *roms: torch.Tensor) -> None:
     if n > 65535 or -(-h // _TILE_H) > 65535:
         raise ValueError(f"batch {n} or height {h} exceeds the kernel grid")
     for rom in roms:
-        if (rom.device != x.device or rom.dtype != torch.int32
-                or rom.dim() != 2 or not rom.is_contiguous()):
+        table = rom.table
+        if (table.device != x.device or table.dtype != torch.int32
+                or table.dim() != 2 or not table.is_contiguous()):
             raise ValueError("ROMs must be contiguous 2-D int32 tensors on "
                              "the input's device")
 
@@ -235,26 +313,27 @@ def _check_method_width(method: str, nbits: int) -> tuple[int, int]:
     return _METHOD_CODES[family], num_ecc
 
 
-def conv_pass_kcm(x: torch.Tensor, rom: torch.Tensor, kh: int, kw: int, *,
+def conv_pass_kcm(x: torch.Tensor, rom: RomStack, kh: int, kw: int, *,
                   shift: int, post: str) -> torch.Tensor:
-    """Direct pass from a (kh*kw, 2**nbits) int32 ROM stack."""
+    """Direct pass from a (kh*kw, 2**nbits) ROM stack (`rom_stack`)."""
     _check_x(x)
     _check_post(post)
-    if rom.shape[0] != kh * kw:
-        raise ValueError(f"ROM stack has {rom.shape[0]} rows for {kh}x{kw} taps")
+    if rom.table.shape[0] != kh * kw:
+        raise ValueError(f"ROM stack has {rom.table.shape[0]} rows for {kh}x{kw} taps")
     if x.device.type == "cpu":
         return conv_pass_kcm_plain(x, rom, kh, kw, shift=shift, post=post)
     _check_cuda(x, kh, kw, rom)
     n, h, w = x.shape
     return _launch("conv_pass_kcm", x, lambda out: (
-        rom.data_ptr(), rom.shape[1], out.data_ptr(), n, h, w, kh, kw, shift,
-        POSTS.index(post)))
+        rom.table.data_ptr(), rom.table.shape[1], rom.fill, rom.carry_bits,
+        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)))
 
 
-def recurse_route(kh: int, kw: int, *, fused: bool = False) -> str:
-    """Which recurse kernel runs a (kh, kw) tap shape: 'persistent' for the
-    shapes it is compiled for (PERSISTENT_SHAPES for the direct pass,
-    FUSED_PERSISTENT_SHAPES for the fused one), 'tiled' for any other."""
+def kernel_route(kh: int, kw: int, *, fused: bool = False) -> str:
+    """Which kernel runs a (kh, kw) tap shape of a recurse pass or of the
+    fused kcm pass: 'persistent' for the shapes it is compiled for
+    (PERSISTENT_SHAPES for the direct pass, FUSED_PERSISTENT_SHAPES for the
+    fused ones), 'tiled' for any other."""
     shapes = FUSED_PERSISTENT_SHAPES if fused else PERSISTENT_SHAPES
     return "persistent" if (kh, kw) in shapes else "tiled"
 
@@ -281,29 +360,32 @@ def conv_pass_recurse(x: torch.Tensor, taps: np.ndarray, *, method: str,
     _check_cuda(x, kh, kw)
     n, h, w = x.shape
     coeffs = _host_ints(taps)
-    plan = _plan_ptr(method, taps, nbits, recurse_route(kh, kw))
+    route = kernel_route(kh, kw)
+    plan = _plan_ptr(method, taps, nbits, route)
     return _launch("conv_pass_recurse", x, lambda out: (
         ctypes.cast(coeffs, ctypes.c_void_p), plan, code, num_ecc, nbits,
-        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)))
+        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)), route)
 
 
-def fused_separable_kcm(x: torch.Tensor, row_rom: torch.Tensor,
-                        col_rom: torch.Tensor, *, shift: int,
-                        post: str) -> torch.Tensor:
+def fused_separable_kcm(x: torch.Tensor, row: RomStack, col: RomStack, *,
+                        shift: int, post: str) -> torch.Tensor:
     """Fused separable pass from a (kw, 2**nbits) row ROM stack and a
-    (kh, 2**nbits2) column ROM stack."""
+    (kh, 2**nbits2) column ROM stack (`rom_stack`); the persistent kernel
+    stages the column ROMs' `column_prefix` on the shapes it is compiled
+    for."""
     _check_x(x)
     _check_post(post)
     if x.device.type == "cpu":
-        return fused_separable_kcm_plain(x, row_rom, col_rom, shift=shift,
-                                         post=post)
-    kh, kw = col_rom.shape[0], row_rom.shape[0]
-    _check_cuda(x, kh, kw, row_rom, col_rom)
+        return fused_separable_kcm_plain(x, row, col, shift=shift, post=post)
+    kh, kw = col.table.shape[0], row.table.shape[0]
+    _check_cuda(x, kh, kw, row, col)
     n, h, w = x.shape
+    route = kernel_route(kh, kw, fused=True)
+    prefix, int16 = column_prefix(row, col) if route == "persistent" else (0, False)
     return _launch("fused_separable_kcm", x, lambda out: (
-        row_rom.data_ptr(), row_rom.shape[1], col_rom.data_ptr(),
-        col_rom.shape[1], out.data_ptr(), n, h, w, kh, kw, shift,
-        POSTS.index(post)))
+        row.table.data_ptr(), row.table.shape[1], row.fill, col.table.data_ptr(),
+        col.table.shape[1], col.fill, prefix, int(int16), out.data_ptr(), n, h, w,
+        kh, kw, shift, POSTS.index(post)), route)
 
 
 def fused_separable_recurse(x: torch.Tensor, row: np.ndarray, col: np.ndarray,
@@ -323,13 +405,13 @@ def fused_separable_recurse(x: torch.Tensor, row: np.ndarray, col: np.ndarray,
     _check_cuda(x, kh, kw)
     n, h, w = x.shape
     row_c, col_c = _host_ints(row), _host_ints(col)
-    route = recurse_route(kh, kw, fused=True)
+    route = kernel_route(kh, kw, fused=True)
     row_plan = _plan_ptr(method, row, nbits, route)
     col_plan = _plan_ptr(method, col, nbits2, route)
     return _launch("fused_separable_recurse", x, lambda out: (
         ctypes.cast(row_c, ctypes.c_void_p), ctypes.cast(col_c, ctypes.c_void_p),
         row_plan, col_plan, code, num_ecc, nbits, nbits2, out.data_ptr(), n, h,
-        w, kh, kw, shift, POSTS.index(post)))
+        w, kh, kw, shift, POSTS.index(post)), route)
 
 
 # ------------------------------------------------------------- public passes
@@ -343,18 +425,21 @@ def _host_tables(method: str, taps_key: tuple, nbits: int):
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(method: str, taps_key: tuple, nbits: int,
-                   device: torch.device) -> torch.Tensor:
-    """The ROM stack as a contiguous int32 tensor on `device`, cached per
-    coefficient table (the kernels read int32 ROMs)."""
-    stack = _host_tables(method, taps_key, nbits)[0]
-    return torch.from_numpy(stack.astype(np.int32)).to(device)
+                   device: torch.device) -> RomStack:
+    """The ROM stack as a contiguous int32 tensor on `device` (the kernels
+    read int32 ROMs) with its host stack's facts, cached per coefficient
+    table."""
+    stack, bound = _host_tables(method, taps_key, nbits)
+    fits = ((stack >= -(1 << 15)) & (stack < (1 << 15))).all(axis=0)
+    int16_prefix = int(fits.size if fits.all() else fits.argmin())
+    return RomStack(torch.from_numpy(stack.astype(np.int32)).to(device),
+                    int(np.iinfo(stack.dtype).min), bound, int16_prefix)
 
 
-def rom_stack(method: str, taps, nbits: int,
-              device: torch.device) -> torch.Tensor:
-    """(taps.size, 2**nbits) int32 KCM ROM stack on `device` for the
-    coefficients `taps` (row-major), as the kcm kernels read it; raises
-    when the accumulator bound exceeds int32, like the reference."""
+def rom_stack(method: str, taps, nbits: int, device: torch.device) -> RomStack:
+    """(taps.size, 2**nbits) KCM ROM stack on `device` for the coefficients
+    `taps` (row-major), as the kcm kernels read it; raises when the
+    accumulator bound exceeds int32, like the reference."""
     key = (method, tuple(_host_taps(taps).reshape(-1).tolist()), nbits)
     if _host_tables(*key)[1] >= (1 << 31):
         raise ValueError(f"accumulator bound {_host_tables(*key)[1]} exceeds "
@@ -431,10 +516,11 @@ def second_pass_nbits(intermediate_max: int, coeff_max: int) -> int:
 
 __all__ = [
     "FUSED_PERSISTENT_SHAPES", "KERNELS", "LAUNCHES", "METHODS", "MULT_IMPLS",
-    "PERSISTENT_SHAPES", "POSTS", "apply_post",
+    "PERSISTENT_SHAPES", "POSTS", "PREFIX_GRANULE", "PREFIX_MAX_BYTES", "ROUTED",
+    "ROUTE_LAUNCHES", "RomStack", "apply_post", "column_prefix",
     "conv2d_pass", "conv_pass_kcm", "conv_pass_kcm_plain", "conv_pass_recurse",
     "conv_pass_recurse_plain", "fused_separable_kcm",
     "fused_separable_kcm_plain", "fused_separable_pass",
     "fused_separable_recurse", "fused_separable_recurse_plain",
-    "recurse_route", "reset_launches", "rom_stack", "second_pass_nbits", "tap_multiplier",
+    "kernel_route", "reset_launches", "rom_stack", "second_pass_nbits", "tap_multiplier",
 ]

@@ -194,13 +194,17 @@ def test_port_oracle_matches_reference_oracle():
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
-def test_kcm_operand_beyond_rom_adds_nothing():
-    """|x| >= 2**nbits is outside the pass's contract; the plain version,
-    like the kernel, reads no ROM entry for it and adds 0."""
+def test_kcm_operand_beyond_rom_gives_the_reference_fill():
+    """|x| >= 2**nbits gathers the reference's `jnp.take` fill, the int16
+    stack's minimum, summed in its int16 carry, as the Pallas pass does."""
     x = torch.tensor([[[300, 5]]], dtype=torch.int32)
     rom = tconv.rom_stack("exact", np.array([[1, 1]]), 8, x.device)
+    assert (rom.fill, rom.carry_bits) == (-(1 << 15), 16)
     got = tconv.conv_pass_kcm_plain(x, rom, 1, 2, shift=0, post="none")
-    assert got.tolist() == [[[0, 5]]]          # 0 + (300 -> 0), 300 -> 0 + 5
+    want = np.asarray(jconv.conv2d_pass(jnp.asarray(x.numpy()), np.array([[1, 1]]),
+                                        method="exact", nbits=8, shift=0, post="none",
+                                        mult_impl="kcm", interpret=True))
+    assert got.tolist() == want.tolist() == [[[-32768, -32763]]]
 
 
 # ----------------------------------------------------- wrappers and build
@@ -209,7 +213,8 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     """A wrapper takes its plain version only for CPU tensors; any other
     device gets the kernel or an error, never a fallback."""
     x = torch.zeros((1, 4, 4), dtype=torch.int32, device="meta")
-    rom = torch.zeros((9, 256), dtype=torch.int32, device="meta")
+    rom = tconv.RomStack(torch.zeros((9, 256), dtype=torch.int32, device="meta"),
+                         -(1 << 15), 0, 256)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tconv.conv_pass_kcm(x, rom, 3, 3, shift=0, post="none")
     with pytest.raises(ValueError, match="CUDA or CPU"):

@@ -180,24 +180,24 @@ BANK_DIRECT = sorted({FILTER_BANK[n].taps.shape for n in FILTER_BANK}
 
 @pytest.mark.parametrize("shape", BANK_DIRECT)
 def test_bank_shapes_take_the_persistent_direct_kernel(shape):
-    assert tconv.recurse_route(*shape) == "persistent"
+    assert tconv.kernel_route(*shape) == "persistent"
 
 
 @pytest.mark.parametrize("shape", [(2, 3), (7, 5), (3, 5), (1, 7), (15, 15)])
 def test_other_shapes_take_the_tiled_direct_kernel(shape):
-    assert tconv.recurse_route(*shape) == "tiled"
+    assert tconv.kernel_route(*shape) == "tiled"
 
 
 @pytest.mark.parametrize("name", [n for n in FILTER_BANK if FILTER_BANK[n].separable])
 def test_bank_separable_filters_take_the_persistent_fused_kernel(name):
     spec = FILTER_BANK[name]
-    assert tconv.recurse_route(spec.sep_col.size, spec.sep_row.size,
+    assert tconv.kernel_route(spec.sep_col.size, spec.sep_row.size,
                                fused=True) == "persistent"
 
 
 @pytest.mark.parametrize("shape", [(2, 3), (7, 5), (3, 5), (5, 3), (1, 3)])
 def test_other_shapes_take_the_tiled_fused_kernel(shape):
-    assert tconv.recurse_route(*shape, fused=True) == "tiled"
+    assert tconv.kernel_route(*shape, fused=True) == "tiled"
 
 
 # ------------------------------------------------------- a pass from the plan
