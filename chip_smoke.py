@@ -20,8 +20,8 @@ Phases, each fatal on failure:
                the tiled kernels of the first design (variant 0, the C
                entry given no plan). Every conv kernel again on operands at
                or past the ROMs (+-2**nbits, +-300 at 8 bits, +-70000 at
-               16; -2**31 and 2**31 - 1 for the kcm kernels), both carry
-               widths, and the fused kcm kernel against its tiled kernel of
+               16) and at the Mitchell lane's int32 extremes (+-2**30 up to
+               2**31 - 1 and -2**31), both carry widths, and the fused kcm kernel against its tiled kernel of
                the first design (variant 0). The three matmul kernels: every
                (num_ecc, case_split) of `mitchell_matmul`; both limb modes of
                `karatsuba_matmul_i8` (int8 limbs, their edges -128 / 127 and
@@ -65,9 +65,24 @@ Phases, each fatal on failure:
                with the persistent instance's column prefix, shared memory a
                block, resident blocks an SM, registers and spills;
                the recurse kernels for every method beside the tiled kernel
-               of the first design (variant 0), on [variant] lines too.
+               of the first design (variant 0), on [variant] lines too;
+ 10. serve  -- `repro_torch.serve.ImageFilterServer` on the card, after 8
+               (the times phase follows it): both buckets warmed (480x640
+               fingerprint frames: gaussian3, gaussian5, sobel_x, sharpen3,
+               laplacian x kcm / recurse; 2048x2048 satellite frames:
+               gaussian5 kcm on a second server with max_batch 16), then 4
+               client threads submit 96 fingerprint frames at mixed
+               priorities, 16 satellite frames and 8 cnn infer requests
+               (mitchell and karatsuba_int16, 64x64 patches); every served
+               output byte-equal to the direct call on the card; launches by
+               kernel equal to dispatches x launches a call; one poisoned
+               round fails its seq alone. [serve] lines: frames a second and
+               p50 / p99 latency per bucket and per kind (from the server's
+               trace), the hit/miss and plan-memo counters, the profiler's
+               measured / plan_cost drift.
 The line before the last is a JSON object naming the seven kernels with
-their numbers; the last line is the run's result and device.
+their numbers (and `serve_launches`, their launches in phase 10); the last
+line is the run's result and device.
 """
 from __future__ import annotations
 
@@ -484,16 +499,13 @@ def phase_parity(max_err: dict[str, int]) -> None:
                              + "\n".join(failures[:20]))
 
 
-def with_out_of_range(x: torch.Tensor, nbits: int, seed: int,
-                      extremes: bool = False) -> torch.Tensor:
+def with_out_of_range(x: torch.Tensor, nbits: int, seed: int) -> torch.Tensor:
     """x with about one pixel in 50 replaced by an operand at or past the
     2**nbits ROMs: +-2**nbits, +-(2**nbits + 1), +-300 at 8 bits, +-70000
-    at 16; with `extremes` also -2**31 and 2**31 - 1 (the kcm kernels only:
-    the recurse path's Mitchell family differs from the reference there,
-    ROADMAP F2)."""
+    at 16, and the int32 extremes of the Mitchell family's lane (ROADMAP
+    F2): +-2**30, 2**30 + 777777, 2**31 - 1 and -2**31."""
     extra = (300, -300) if nbits == 8 else (70000, -70000)
-    if extremes:
-        extra += (-(1 << 31), (1 << 31) - 1)
+    extra += (1 << 30, -(1 << 30), (1 << 30) + 777777, (1 << 31) - 1, -(1 << 31))
     values = torch.tensor([1 << nbits, -(1 << nbits), (1 << nbits) + 1, -(1 << nbits) - 1,
                            *extra], dtype=torch.int32)
     g = torch.Generator().manual_seed(seed)
@@ -510,7 +522,9 @@ def phase_range_parity(max_err: dict[str, int]) -> None:
     carries: sobel and laplacian have ROM bounds below 2**15, the others
     not), the F1 taps, the 16-bit column pass of the two-pass dataflow
     (int32 ROMs, fill -2**31), and the fused passes, whose out-of-range row
-    sums reach the column ROMs' global-memory entries and their fill."""
+    sums reach the column ROMs' global-memory entries and their fill. The
+    operands include +-2**30 up to -2**31 for every kernel: the recurse
+    kernels' Mitchell family takes the reference's int32 lane (F2)."""
     from repro_torch.filters import conv
     from repro_torch.filters.bank import FILTER_BANK, max_intermediate
 
@@ -528,10 +542,10 @@ def phase_range_parity(max_err: dict[str, int]) -> None:
     direct.append(("f1", f1, 0, "none"))
     for i, shape in enumerate(PARITY_SHAPES):
         frames = torch.from_numpy(noisy_frames(shape[0], shape[1:], 20, 30 + i)).cuda()
-        x8, k8 = (with_out_of_range(frames, 8, 40 + i, e) for e in (False, True))
+        x8 = with_out_of_range(frames, 8, 40 + i)
         rng = np.random.default_rng(50 + i)
         wide = torch.from_numpy(rng.integers(-(1 << 16) + 1, 1 << 16, shape).astype(np.int32))
-        x16, k16 = (with_out_of_range(wide.cuda(), 16, 60 + i, e) for e in (False, True))
+        x16 = with_out_of_range(wide.cuda(), 16, 60 + i)
         for method in METHODS:
             for name, taps, shift, post in direct:
                 kh, kw = taps.shape
@@ -539,11 +553,11 @@ def phase_range_parity(max_err: dict[str, int]) -> None:
                 carries.add(rom.carry_bits)
                 kw_ = dict(shift=shift, post=post)
                 what = f"{name} {method} nbits=8 carry={rom.carry_bits} {shape}"
-                want = conv.conv_pass_kcm_plain(k8, rom, kh, kw, **kw_)
-                check("conv_pass_kcm", conv.conv_pass_kcm(k8, rom, kh, kw, **kw_), want, what)
+                want = conv.conv_pass_kcm_plain(x8, rom, kh, kw, **kw_)
+                check("conv_pass_kcm", conv.conv_pass_kcm(x8, rom, kh, kw, **kw_), want, what)
                 if (kh, kw) == (3, 3) and method in ("refmlm", "mitchell"):
                     for v in KCM_VARIANTS:
-                        check("conv_pass_kcm", kcm_variant(k8, rom, kh, kw, shift, post, v),
+                        check("conv_pass_kcm", kcm_variant(x8, rom, kh, kw, shift, post, v),
                               want, f"variant {v} {what}")
                 t64 = np.asarray(taps, np.int64)
                 rk = dict(method=method, nbits=8, **kw_)
@@ -561,10 +575,10 @@ def phase_range_parity(max_err: dict[str, int]) -> None:
                 rr = conv.rom_stack(method, row, 8, x8.device)
                 cr = conv.rom_stack(method, col, nb2, x8.device)
                 what = f"{name} {method} {shape}"
-                want = conv.fused_separable_kcm_plain(k8, rr, cr, **kw_)
-                check("fused_separable_kcm", conv.fused_separable_kcm(k8, rr, cr, **kw_), want,
+                want = conv.fused_separable_kcm_plain(x8, rr, cr, **kw_)
+                check("fused_separable_kcm", conv.fused_separable_kcm(x8, rr, cr, **kw_), want,
                       what)
-                check("fused_separable_kcm", fused_kcm_tiled(k8, rr, cr, **kw_), want,
+                check("fused_separable_kcm", fused_kcm_tiled(x8, rr, cr, **kw_), want,
                       f"variant 0 {what}")
                 rk = dict(method=method, nbits=8, nbits2=nb2, **kw_)
                 got = conv.fused_separable_recurse(x8, row, col, **rk)
@@ -577,8 +591,8 @@ def phase_range_parity(max_err: dict[str, int]) -> None:
                 crom = conv.rom_stack(method, colt, 16, x16.device)
                 carries.add(crom.carry_bits)
                 what = f"{name} col nbits=16 {method} {shape}"
-                check("conv_pass_kcm", conv.conv_pass_kcm(k16, crom, len(col), 1, **kw_),
-                      conv.conv_pass_kcm_plain(k16, crom, len(col), 1, **kw_), what)
+                check("conv_pass_kcm", conv.conv_pass_kcm(x16, crom, len(col), 1, **kw_),
+                      conv.conv_pass_kcm_plain(x16, crom, len(col), 1, **kw_), what)
                 rk = dict(method=method, nbits=16, **kw_)
                 got = conv.conv_pass_recurse(x16, colt, **rk)
                 check("conv_pass_recurse", got, conv.conv_pass_recurse_plain(x16, colt, **rk),
@@ -698,6 +712,277 @@ def phase_scale(device: torch.device) -> torch.Tensor:
         f"({x.numel() * 4 / 1e6:.0f} MB int32 in) first call {secs:.3f} s "
         f"(host clock, with ROM setup); max pixel {int(out.max())}")
     return x
+
+
+SERVE_FRAME = MAIN_SHAPE[1:]          # fingerprint frames, the main path's
+SERVE_SAT = (2048, 2048)              # satellite / medical frames
+SERVE_FILTERS = ("gaussian3", "gaussian5", "sobel_x", "sharpen3", "laplacian")
+SERVE_IMPLS = ("kcm", "recurse")
+SERVE_ROUNDS = 12                     # rounds of 8 same-bucket fingerprint frames
+SERVE_CLIENTS = 4
+SERVE_SATS = 16
+SERVE_INFER = (("mitchell", 4), ("karatsuba_int16", 4))   # (method, requests)
+PRIORITY_CYCLE = ("high", "normal", "low")
+
+
+def _kernel_of(plan_tag: str) -> str | None:
+    """conv kernel a filter dispatch's plan tag launches ('fused/kcm/...')."""
+    dataflow, impl = plan_tag.split("/")[:2]
+    if dataflow == "fused":
+        return f"fused_separable_{impl}"
+    if dataflow == "direct":
+        return f"conv_pass_{impl}"
+    return None
+
+
+def _pcts(values: list[float]) -> tuple[float, float]:
+    v = np.asarray(values, np.float64)
+    return float(np.percentile(v, 50)), float(np.percentile(v, 99))
+
+
+SERVE_BREAKDOWN_RUNS = 7
+
+
+def dispatch_breakdown(srv, imgs: np.ndarray, filt: str) -> dict[str, float]:
+    """Median ms of the parts of one served dispatch of `imgs` on an idle
+    server, each part ended by a sync: the host batch, the copy to the
+    card, `apply_filter` there (its casts and kernel), the copy back; and
+    the whole round trip through the server (submit all, wait for all)."""
+    from repro_torch.filters import apply_filter
+
+    parts: dict[str, list[float]] = {k: [] for k in
+                                     ("host_batch", "h2d", "apply_filter", "d2h", "served")}
+    for _ in range(SERVE_BREAKDOWN_RUNS):
+        t0 = time.perf_counter()
+        batch = np.zeros(imgs.shape, imgs.dtype)
+        batch[:] = imgs
+        t1 = time.perf_counter()
+        x = torch.from_numpy(batch).cuda()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = apply_filter(x, filt, method="refmlm", mult_impl="kcm")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.cpu()
+        t4 = time.perf_counter()
+        futs = [srv.submit(im, filt, method="refmlm", mult_impl="kcm") for im in imgs]
+        for fut in futs:
+            fut.result(60)
+        t5 = time.perf_counter()
+        for name, a, b in (("host_batch", t0, t1), ("h2d", t1, t2), ("apply_filter", t2, t3),
+                           ("d2h", t3, t4), ("served", t4, t5)):
+            parts[name].append((b - a) * 1e3)
+    return {name: statistics.median(v) for name, v in parts.items()}
+
+
+def phase_serve(device: torch.device) -> dict[str, int]:
+    """`ImageFilterServer` on the card: warm both buckets, then 4 client
+    threads submit 96 fingerprint frames (12 rounds of 8 same-bucket frames
+    at mixed priorities, 5 filters x kcm / recurse), 16 satellite frames
+    (a second server, max_batch 16) and 8 cnn infer requests; every served
+    output byte-equal to the direct call on the card, launches equal to
+    dispatches x launches a call, then one poisoned round. -> launches by
+    kernel during the served load."""
+    import threading
+
+    from repro_torch.data.images import add_salt_pepper, fingerprint, inference_batch
+    from repro_torch.filters import apply_filter, conv
+    from repro_torch.infer import MODELS, calibrate, forward, init_params
+    from repro_torch.infer.graph import Conv, Dense
+    from repro_torch.infer.serving import InferWorkload
+    from repro_torch.runtime.fault import SITE_EXECUTE, FaultInjector, fault_scope
+    from repro_torch.serve import ImageFilterServer, ServerConfig
+
+    t_phase = time.perf_counter()
+    frames = noisy_frames(8, SERVE_FRAME, 20, 300).astype(np.uint8)
+    base = fingerprint(SERVE_SAT, seed=9)
+    sats = np.stack([add_salt_pepper(base, 10, seed=400 + i)
+                     for i in range(SERVE_SATS)]).astype(np.uint8)
+    graph = MODELS["cnn"](INFER_HW)
+    cal = calibrate(graph, init_params(graph, seed=0),
+                    inference_batch(4, INFER_HW, seed=100), device=device)
+    patches = inference_batch(sum(n for _, n in SERVE_INFER), INFER_HW, seed=7)
+    layers_a_call = sum(isinstance(l, (Conv, Dense)) for l in graph.layers)
+
+    frame_srv = ImageFilterServer(ServerConfig(
+        max_batch=8, max_delay_ms=5.0, max_pending=4096, trace=True,
+        workloads={"infer": InferWorkload({"cnn": cal})}))
+    sat_srv = ImageFilterServer(ServerConfig(
+        max_batch=16, max_delay_ms=50.0, max_pending=SERVE_SATS * 256, trace=True))
+    try:
+        t0 = time.perf_counter()
+        warmed = frame_srv.warmup([SERVE_FRAME], SERVE_FILTERS, methods=("refmlm",),
+                                  mult_impls=SERVE_IMPLS, batches=(1, 2, 4, 8),
+                                  priorities=PRIORITY_CYCLE)
+        warmed += frame_srv.warmup([INFER_HW], ("cnn",),
+                                   methods=tuple(m for m, _ in SERVE_INFER),
+                                   batches=(1, 2, 4), priorities=("high",),
+                                   workload="infer")
+        warmed += sat_srv.warmup([SERVE_SAT], ("gaussian5",), mult_impls=("kcm",),
+                                 batches=(8, 16), priorities=("low",))
+        torch.cuda.synchronize()
+        log(f"[serve] warmup: {len(warmed)} serve keys in "
+            f"{time.perf_counter() - t0:.3f} s (host clock)")
+
+        combos = [(f, i) for f in SERVE_FILTERS for i in SERVE_IMPLS]
+        jobs: list[list[tuple]] = [[] for _ in range(SERVE_CLIENTS)]
+        for r in range(SERVE_ROUNDS):
+            filt, impl = combos[r % len(combos)]
+            pri = PRIORITY_CYCLE[r % 3]
+            jobs[r % SERVE_CLIENTS].extend(
+                ("frame", (r * 8 + j) % len(frames), filt, impl, pri) for j in range(8))
+        for i in range(SERVE_SATS):
+            jobs[i % SERVE_CLIENTS].append(("sat", i, "gaussian5", "kcm", "low"))
+        i = 0
+        for method, count in SERVE_INFER:
+            for _ in range(count):
+                jobs[i % SERVE_CLIENTS].append(("infer", i, "cnn", method, "high"))
+                i += 1
+        futures: list[list[tuple]] = [[] for _ in range(SERVE_CLIENTS)]
+
+        def client(k: int) -> None:
+            for job in jobs[k]:
+                kind, idx, target, impl, pri = job
+                if kind == "frame":
+                    fut = frame_srv.submit(frames[idx], target, method="refmlm",
+                                           mult_impl=impl, priority=pri)
+                elif kind == "sat":
+                    fut = sat_srv.submit(sats[idx], target, method="refmlm",
+                                         mult_impl=impl, priority=pri)
+                else:
+                    fut = frame_srv.submit(patches[idx], target, method=impl,
+                                           priority=pri, workload="infer")
+                futures[k].append((job, fut))
+            for _, fut in futures[k]:
+                fut.result(120)
+
+        torch.cuda.synchronize()
+        conv.reset_launches()
+        reset_matmul_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = {**conv.LAUNCHES, **matmul_launches()}
+        routes = dict(conv.ROUTE_LAUNCHES)
+        stats = {"frames": frame_srv.stats(), "sats": sat_srv.stats()}
+        for name, st in stats.items():
+            assert st["failed"] == 0 and st["served"] == st["submitted"], (name, st)
+        log(f"[serve] {sum(len(j) for j in jobs)} requests from {SERVE_CLIENTS} "
+            f"clients in {wall:.3f} s (host clock); launches {launches}; "
+            f"by route {routes}")
+
+        # launches == dispatches x launches a call, from the profilers' rows
+        want = dict.fromkeys(launches, 0)
+        for st in stats.values():
+            for row in st["profile"].values():
+                kernel = _kernel_of(row["plan"])
+                if kernel is not None:
+                    want[kernel] += row["n_obs"]
+                elif row["plan"] == "local/infer":
+                    method = row["bucket"].split("/")[1]
+                    want["mitchell_matmul" if method == "mitchell"
+                         else "karatsuba_matmul_i8"] += row["n_obs"] * layers_a_call
+        log(f"[serve] dispatches x launches a call {want}")
+        assert launches == want, f"launches {launches} != dispatches x per call {want}"
+        for name in conv.ROUTED:
+            assert routes[(name, "tiled")] == 0, f"{name}: a served launch was tiled"
+        missing = [k for k in ("conv_pass_kcm", "conv_pass_recurse", "fused_separable_kcm",
+                               "fused_separable_recurse", "mitchell_matmul",
+                               "karatsuba_matmul_i8") if launches[k] == 0]
+        assert not missing, f"kernels never launched by the server: {missing}"
+
+        # served bytes == the direct call on the card
+        checked = 0
+        for k in range(SERVE_CLIENTS):
+            for (kind, idx, target, impl, _), fut in futures[k]:
+                out = fut.result(0)
+                if kind == "infer":
+                    want_out = forward(cal, patches[idx:idx + 1], impl)[0].cpu()
+                else:
+                    img = frames[idx] if kind == "frame" else sats[idx]
+                    want_out = apply_filter(img, target, method="refmlm",
+                                            mult_impl=impl).cpu()
+                assert out.device.type == "cpu", (kind, target)
+                assert torch.equal(out, want_out), f"served != direct: {kind} {target} {impl}"
+                checked += 1
+        log(f"[serve] {checked} served outputs byte-equal to the direct call on the card")
+
+        # frames/s and p50 / p99 latency (submit -> fulfil, the server's trace)
+        kinds = {"frame": [], "sat": [], "infer": []}
+        for name, srv in (("frames", frame_srv), ("sats", sat_srv)):
+            by_bucket: dict[str, list[float]] = {}
+            spans = srv.trace.spans()
+            for evs in spans.values():
+                ev = {e["event"]: e for e in evs}
+                if "submit" not in ev or "fulfil" not in ev:
+                    continue
+                bucket = ev["submit"]["bucket"]
+                by_bucket.setdefault(bucket, []).append(
+                    (ev["submit"]["ts"], ev["fulfil"]["ts"]))
+            for bucket, pairs in sorted(by_bucket.items()):
+                lat = [(b - a) * 1e3 for a, b in pairs]
+                p50, p99 = _pcts(lat)
+                log(f"[serve] bucket {bucket}: n={len(lat)} p50 {p50:.4f} ms "
+                    f"p99 {p99:.4f} ms")
+                kind = ("infer" if bucket.endswith("/infer")
+                        else "sat" if name == "sats" else "frame")
+                kinds[kind].extend(pairs)
+        summary = {}
+        for kind, pairs in kinds.items():
+            lat = [(b - a) * 1e3 for a, b in pairs]
+            span = max(b for _, b in pairs) - min(a for a, _ in pairs)
+            p50, p99 = _pcts(lat)
+            summary[kind] = {"requests": len(pairs), "per_s": len(pairs) / span,
+                             "p50_ms": p50, "p99_ms": p99}
+            log(f"[serve] {kind}: {len(pairs)} served, {len(pairs) / span:.1f} a second "
+                f"(first submit to last fulfil, {span:.4f} s), p50 {p50:.4f} ms, "
+                f"p99 {p99:.4f} ms")
+        for name, st in stats.items():
+            log(f"[serve] {name} stats: compile {st['compile']} plan_memo "
+                f"{st['plan_memo']} batches {st['batches']} occupancy "
+                f"{st['occupancy']} flush_reasons {st['flush_reasons']}")
+            for row in st["profile"].values():
+                log(f"[serve] drift {row['bucket']} | {row['plan']}: n={row['n_obs']} "
+                    f"observed {row['observed_mean_s'] * 1e3:.4f} ms, "
+                    f"drift (observed / plan_cost) {row.get('drift_mean', float('nan')):.3f}")
+
+        # one poisoned round: only seq k fails, its neighbours are re-served
+        k = stats["frames"]["submitted"] + 4
+        inj = FaultInjector().poison(SITE_EXECUTE, k)
+        with fault_scope(inj):
+            futs = [frame_srv.submit(frames[j], "gaussian3", method="refmlm",
+                                     mult_impl="kcm") for j in range(8)]
+            outcomes = []
+            for fut in futs:
+                try:
+                    outcomes.append(fut.result(60))
+                except Exception as err:              # noqa: BLE001
+                    outcomes.append(err)
+        failed = [j for j, o in enumerate(outcomes) if not isinstance(o, torch.Tensor)]
+        assert failed == [3], f"the poisoned round failed {failed}, not seq {k} alone"
+        for j, out in enumerate(outcomes):
+            if j != 3:
+                assert torch.equal(out, apply_filter(frames[j], "gaussian3", method="refmlm",
+                                                     mult_impl="kcm").cpu())
+        st = frame_srv.stats()
+        log(f"[serve] poison seq {k}: failed {[k]}, 7 neighbours re-served byte-equal; "
+            f"retries {st['retries']} isolated {st['isolated']}")
+        for srv, imgs, filt in ((frame_srv, frames, "gaussian3"), (sat_srv, sats, "gaussian5")):
+            parts = dispatch_breakdown(srv, imgs, filt)
+            log(f"[serve] one idle dispatch of {len(imgs)}x{imgs.shape[1]}x{imgs.shape[2]} "
+                f"{filt} refmlm kcm, median ms of {SERVE_BREAKDOWN_RUNS}: "
+                + " ".join(f"{name}={ms:.4f}" for name, ms in parts.items()))
+    finally:
+        frame_srv.close()
+        sat_srv.close()
+    torch.cuda.synchronize()
+    log(f"[serve] summary {json.dumps(summary)}")
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches
 
 
 def time_ms(fn, runs: int, warmup: int = 2) -> float:
@@ -1322,6 +1607,7 @@ def main() -> int:
         launches[name] = mm_launches[name] + infer_launches[name]
     launches["karatsuba_matmul"] = phase_wide_main(device)["karatsuba_matmul"]
     scale_frames = phase_scale(device)
+    serve_launches = phase_serve(device)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
@@ -1336,7 +1622,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
         })
     for name, key in (("mitchell_matmul", ("mitchell_matmul", 0, True)),
                       ("karatsuba_matmul", ("karatsuba_matmul", True)),
@@ -1349,7 +1635,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
         })
     log(smi)                    # the card's name and power limit, again at the end
     print(json.dumps({"kernels": kernels}))

@@ -7,17 +7,21 @@ Counterpart of `repro.core.mitchell`, same integer formulation:
   BB:       P = 2^(k1+k2) + m  (no case split), ECC stages re-apply BB to
             the mantissa residues.
 
-Products are computed in int64 and returned as int32, wrapped. The
-reference declares a uint32 lane for 16-bit products (`_prod_dtype`), but
-JAX promotes uint32 shifted by the int32 characteristic to int32, so its
-Mitchell-family products are int32 at every width and wrap at 2**31 (e.g.
-mitchell(65535, 65535, 16) == -131072). The port returns the same values.
+The lane is the reference's: int32 at every width, carried here in int64
+and wrapped after every step. The reference declares a uint32 lane for
+16-bit products (`_prod_dtype`), but JAX promotes uint32 shifted by the
+int32 characteristic to int32, so its Mitchell-family products wrap at
+2**31 (e.g. mitchell(65535, 65535, 16) == -131072). Operands of magnitude
+2**30 and more follow the same lane: the characteristic of a non-positive
+int32 (|-2**31| is -2**31) is 0, a shift by 32 or more gives 0, and
+Mitchell's case split compares the wrapped m and 2**(k1+k2) as signed
+int32 (for a = 2**30, b = 2: lead = 2**31 wraps to -2**31, so P = 2m = 0).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bitops import leading_one_position
+from repro_torch.core.bitops import leading_one_position, shift_left_int32, wrap32
 
 MAX_NBITS = 16
 _U32 = (1 << 32) - 1
@@ -36,37 +40,36 @@ def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
-def _pow2(k: torch.Tensor) -> torch.Tensor:
-    return torch.ones_like(k) << k
-
-
 def characteristic_and_mantissa(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(k, mantissa) with x = 2^k + mantissa; (0, 0) for x == 0."""
-    x = x.to(torch.int64)
+    """(k, mantissa) with x = 2^k + mantissa of the int32 value of x;
+    (0, x) for x <= 0, as the reference's int32 lane gives."""
+    x = wrap32(x.to(torch.int64))
     k = leading_one_position(x)
-    return k, x - torch.where(x > 0, _pow2(k), 0)
+    return k, x - torch.where(x > 0, torch.ones_like(k) << k, 0)
+
+
+def _lead_and_m(a: torch.Tensor, b: torch.Tensor):
+    """-> (2**(k1+k2), (x1 << k2) + (x2 << k1), zero operand), int32 values."""
+    k1, x1 = characteristic_and_mantissa(a)
+    k2, x2 = characteristic_and_mantissa(b)
+    m = wrap32(shift_left_int32(x1, k2) + shift_left_int32(x2, k1))
+    lead = shift_left_int32(torch.ones_like(k1), k1 + k2)
+    return lead, m, (wrap32(a) == 0) | (wrap32(b) == 0)
 
 
 def mitchell(a: torch.Tensor, b: torch.Tensor, nbits: int = 16) -> torch.Tensor:
     """Mitchell's algorithm (MA) product approximation, eq. 8."""
     _check_width(nbits)
-    a, b = a.to(torch.int64), b.to(torch.int64)
-    k1, x1 = characteristic_and_mantissa(a)
-    k2, x2 = characteristic_and_mantissa(b)
-    m = (x1 << k2) + (x2 << k1)
-    lead = _pow2(k1 + k2)
+    lead, m, zero = _lead_and_m(a.to(torch.int64), b.to(torch.int64))
     p = torch.where(m < lead, lead + m, 2 * m)
-    return wrap_int32(torch.where((a == 0) | (b == 0), 0, p))
+    return wrap_int32(torch.where(zero, 0, p))
 
 
 def babic_bb(a: torch.Tensor, b: torch.Tensor, nbits: int = 16) -> torch.Tensor:
     """Babic/Bulic basic block (no case split): 2^(k1+k2) + m."""
     _check_width(nbits)
-    a, b = a.to(torch.int64), b.to(torch.int64)
-    k1, x1 = characteristic_and_mantissa(a)
-    k2, x2 = characteristic_and_mantissa(b)
-    p = _pow2(k1 + k2) + (x1 << k2) + (x2 << k1)
-    return wrap_int32(torch.where((a == 0) | (b == 0), 0, p))
+    lead, m, zero = _lead_and_m(a.to(torch.int64), b.to(torch.int64))
+    return wrap_int32(torch.where(zero, 0, lead + m))
 
 
 def babic_ecc(a: torch.Tensor, b: torch.Tensor, nbits: int = 16,
@@ -74,7 +77,8 @@ def babic_ecc(a: torch.Tensor, b: torch.Tensor, nbits: int = 16,
     """Iterative logarithmic multiplier: BB + `num_ecc` correction stages,
     each applying BB to the previous stage's mantissa residues."""
     _check_width(nbits)
-    ra, rb = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
+    ra, rb = torch.broadcast_tensors(wrap32(a.to(torch.int64)),
+                                     wrap32(b.to(torch.int64)))
     total = torch.zeros_like(ra)
     for _ in range(num_ecc + 1):
         total = total + babic_bb(ra, rb, nbits).to(torch.int64)

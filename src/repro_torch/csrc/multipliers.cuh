@@ -8,9 +8,11 @@
 // nbits <= 16). Every product is carried in uint32_t and returned as the
 // int32 bit pattern, which is what the reference's tap_multiplier yields:
 // its 16-bit products are uint32 (REFMLM) or wrapping int32 (Mitchell
-// family) and are cast with a wrap to int32. For in-range operands no
-// intermediate exceeds 2**32, and every comparison (Mitchell's m < lead)
-// sees values below 2**31, so signed and unsigned lanes agree.
+// family) and are cast with a wrap to int32. The Mitchell family follows
+// the reference's int32 lane for any int32 operand, |x| >= 2**30 and
+// |-2**31| = -2**31 included: the characteristic of x <= 0 is 0, a shift
+// by 32 or more gives 0 (shl32), and the case split compares m and
+// 2**(k1+k2) as signed int32.
 #pragma once
 
 #include <cstdint>
@@ -53,15 +55,26 @@ __device__ __forceinline__ int32_t mantissa(int32_t x, int k) {
   return x - (x > 0 ? (1 << k) : 0);
 }
 
+// XLA's int32 x << s: the low 32 bits of x * 2**s, and 0 for s >= 32 (PTX
+// shl.b32 clamps the amount; a C++ shift that wide is undefined).
+__device__ __forceinline__ uint32_t shl32(uint32_t x, uint32_t s) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(s));
+  return r;
+}
+
+// Mitchell's case split on the int32 values of m and lead.
+__device__ __forceinline__ uint32_t case_split(uint32_t m, uint32_t lead) {
+  return static_cast<int32_t>(m) < static_cast<int32_t>(lead) ? lead + m : 2u * m;
+}
+
 // Mitchell's algorithm with the case split (repro.core.mitchell.mitchell).
 __device__ __forceinline__ uint32_t mitchell(int32_t a, int32_t b) {
   if (a == 0 || b == 0) return 0u;
   const int k1 = leading_one(a), k2 = leading_one(b);
   const uint32_t x1 = static_cast<uint32_t>(mantissa(a, k1));
   const uint32_t x2 = static_cast<uint32_t>(mantissa(b, k2));
-  const uint32_t m = (x1 << k2) + (x2 << k1);
-  const uint32_t lead = 1u << (k1 + k2);
-  return m < lead ? lead + m : 2u * m;
+  return case_split(shl32(x1, k2) + shl32(x2, k1), shl32(1u, k1 + k2));
 }
 
 // Babic basic block, no case split (repro.core.mitchell.babic_bb).
@@ -70,7 +83,7 @@ __device__ __forceinline__ uint32_t babic_bb(int32_t a, int32_t b) {
   const int k1 = leading_one(a), k2 = leading_one(b);
   const uint32_t x1 = static_cast<uint32_t>(mantissa(a, k1));
   const uint32_t x2 = static_cast<uint32_t>(mantissa(b, k2));
-  return (1u << (k1 + k2)) + (x1 << k2) + (x2 << k1);
+  return shl32(1u, k1 + k2) + shl32(x1, k2) + shl32(x2, k1);
 }
 
 // BB + num_ecc stages on the mantissa residues (repro.core.mitchell.babic_ecc).
@@ -283,9 +296,7 @@ __device__ __forceinline__ uint32_t mitchell_msb(int32_t a, int32_t b) {
   const int k1 = msb(a), k2 = msb(b);
   const uint32_t x1 = static_cast<uint32_t>(mantissa(a, k1));
   const uint32_t x2 = static_cast<uint32_t>(mantissa(b, k2));
-  const uint32_t m = (x1 << k2) + (x2 << k1);
-  const uint32_t lead = 1u << (k1 + k2);
-  return m < lead ? lead + m : 2u * m;
+  return case_split(shl32(x1, k2) + shl32(x2, k1), shl32(1u, k1 + k2));
 }
 
 // 0 or ~0: the sign of x. with_sign(p, m) is p, or -p for m = ~0.
@@ -396,9 +407,7 @@ struct MitchellTaps {
   template <int T>
   __device__ static uint32_t term(const Elem& e, const TapPlan<T>& plan, int tap) {
     const uint32_t k2 = plan.a[tap][0], x2 = plan.b[tap][0];
-    const uint32_t m = (e.x1 << k2) + (x2 << e.k1);
-    const uint32_t lead = 1u << (e.k1 + k2);
-    const uint32_t p = (m < lead ? lead + m : 2u * m) & e.nz;
+    const uint32_t p = case_split(shl32(e.x1, k2) + shl32(x2, e.k1), shl32(1u, e.k1 + k2)) & e.nz;
     return with_sign(p, e.sign ^ sign_mask(plan.coeff[tap]));
   }
 };
@@ -432,7 +441,7 @@ struct EccTaps {
   __device__ static uint32_t term(const Part& p, uint32_t sign, const TapPlan<T>& plan,
                                   int tap, int s) {
     const uint32_t k2 = plan.a[tap][s], x2 = plan.b[tap][s];
-    const uint32_t bb = ((1u << (p.k + k2)) + (p.x << k2) + (x2 << p.k)) & p.nz;
+    const uint32_t bb = (shl32(1u, p.k + k2) + shl32(p.x, k2) + shl32(x2, p.k)) & p.nz;
     return with_sign(bb, sign ^ sign_mask(plan.coeff[tap]));
   }
 };

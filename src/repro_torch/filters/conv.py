@@ -75,13 +75,17 @@ _METHOD_CODES = {"exact": 0, "refmlm": 1, "refmlm_nc": 2, "mitchell": 3,
 # temporaries (64 int64 planes per pixel for 16-bit REFMLM).
 _PLAIN_CHUNK_PIXELS = 1 << 22
 
-# Tap shapes the persistent recurse kernels and the persistent fused kcm
-# kernel are compiled for (the bank's); any other shape runs the tiled
-# kernels. The C entries run the persistent kernel when they are given a
-# plan (a column prefix) and the tiled one when they are not, so this rule
-# (`kernel_route`) is the only copy.
+# Tap shapes the persistent kernels are compiled for (the bank's); any other
+# shape runs the tiled kernels (`conv_pass_kcm`'s C entry makes the same
+# choice itself). The recurse and fused kcm C entries run the persistent
+# kernel when they are given a plan (a column prefix) and the tiled one when
+# they are not, so for them this rule (`kernel_route`) is the only copy.
 PERSISTENT_SHAPES = ((3, 3), (5, 5), (1, 3), (3, 1), (1, 5), (5, 1))
 FUSED_PERSISTENT_SHAPES = ((3, 3), (5, 5))
+# Output tile (rows, cols) of one block of each route: the persistent
+# kernels' kKcmTileH x kKcmTileW (csrc/staging.cuh), the tiled kernels'
+# kTileH x kTileW (conv_pass.cu, fused_separable.cu).
+ROUTE_TILES = {"persistent": (32, 64), "tiled": (_TILE_H, 32)}
 
 # The fused kcm kernel's column-ROM prefix (`column_prefix`): its length is
 # rounded up to PREFIX_GRANULE entries, so the launcher's occupancy cache
@@ -517,7 +521,7 @@ def second_pass_nbits(intermediate_max: int, coeff_max: int) -> int:
 __all__ = [
     "FUSED_PERSISTENT_SHAPES", "KERNELS", "LAUNCHES", "METHODS", "MULT_IMPLS",
     "PERSISTENT_SHAPES", "POSTS", "PREFIX_GRANULE", "PREFIX_MAX_BYTES", "ROUTED",
-    "ROUTE_LAUNCHES", "RomStack", "apply_post", "column_prefix",
+    "ROUTE_LAUNCHES", "ROUTE_TILES", "RomStack", "apply_post", "column_prefix",
     "conv2d_pass", "conv_pass_kcm", "conv_pass_kcm_plain", "conv_pass_recurse",
     "conv_pass_recurse_plain", "fused_separable_kcm",
     "fused_separable_kcm_plain", "fused_separable_pass",

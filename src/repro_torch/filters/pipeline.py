@@ -25,12 +25,14 @@ from repro_torch.filters.bank import (
     max_intermediate,
 )
 from repro_torch.filters.conv import (
+    ROUTE_TILES,
     _resolve_mult_impl,
     conv2d_pass,
     fused_separable_pass,
+    kernel_route,
     second_pass_nbits,
 )
-from repro_torch.tuning.plans import PlanConfig, resolve_plan
+from repro_torch.tuning.plans import PlanConfig, PlanTile, resolve_plan
 
 EXEC_MODES = ("local", "sharded", "streamed")
 
@@ -112,15 +114,39 @@ def apply_filter(imgs, filt: FilterSpec | str, *, method: str = "refmlm",
     return _restore(_apply(x, spec, method, nbits, plan), orig)
 
 
-def resolve_filter_plan(filt: FilterSpec | str, *, mult_impl: str = "auto",
+def resolve_filter_plan(filt: FilterSpec | str, n: int | None = None,
+                        h: int | None = None, w: int | None = None, *,
+                        method: str = "refmlm", mult_impl: str = "auto",
                         separable: bool | None = None,
                         fused: bool | None = None) -> PlanConfig:
-    """The concrete plan `apply_filter` runs for `filt`: dataflow and the
-    resolved tap-product implementation."""
+    """The concrete plan `apply_filter` runs for an (n, h, w) batch of
+    `filt`: dataflow and the resolved tap-product implementation. The
+    signature is the reference's, the serving layer's per-bucket memo
+    hook. The port's plan depends on neither the shape nor `method`: with
+    no plan cache the default is the reference's cache-miss plan, and the
+    tile each plan launches is fixed by its kernel route (`plan_tile`)."""
     spec = get_filter(filt) if isinstance(filt, str) else filt
+    for dim in (n, h, w):
+        if dim is not None and int(dim) < 1:
+            raise ValueError(f"batch and image sizes must be positive, got "
+                             f"{(n, h, w)}")
     plan = resolve_plan(separable_ok=spec.separable, mult_impl=mult_impl,
                         separable=separable, fused=fused)
     return plan._replace(mult_impl=_resolve_mult_impl(plan.mult_impl))
+
+
+def plan_tile(filt: FilterSpec | str, plan: PlanConfig) -> PlanTile:
+    """The tile `plan` launches for `filt`: the route (`conv.kernel_route`)
+    of its last pass -- the fused kernel, the direct pass, or the two-pass
+    column pass -- and that route's block (`conv.ROUTE_TILES`)."""
+    spec = get_filter(filt) if isinstance(filt, str) else filt
+    if plan.dataflow == "fused":
+        route = kernel_route(len(spec.sep_col), len(spec.sep_row), fused=True)
+    elif plan.dataflow == "two_pass":
+        route = kernel_route(len(spec.sep_col), 1)
+    else:
+        route = kernel_route(*spec.ksize)
+    return PlanTile(route, *ROUTE_TILES[route])
 
 
 def apply_filter_batch(imgs: list, filt: FilterSpec | str, *,
@@ -155,4 +181,4 @@ def filter_bank_apply(imgs, filters: tuple[str, ...] | None = None, *,
 
 
 __all__ = ["EXEC_MODES", "apply_filter", "apply_filter_batch",
-           "filter_bank_apply", "resolve_filter_plan"]
+           "filter_bank_apply", "plan_tile", "resolve_filter_plan"]

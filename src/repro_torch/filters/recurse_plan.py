@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.bitops import leading_one_position
+from repro_torch.core.bitops import leading_one_position, shift_left_int32, wrap32
 from repro_torch.core.kcm import parse_method
 from repro_torch.core.mitchell import mitchell, wrap_int32
 from repro_torch.core.refmlm import efmlm2, mlm2
@@ -175,11 +175,12 @@ def plan_words(plan: RecursePlan) -> np.ndarray:
 # ------------------------------------------------ the products, the kernels' way
 
 def _mitchell_from(k1, x1, nz, st: Stage, case_split: bool):
-    """One stage with the coefficient side from the plan (int64 lanes)."""
-    m = (x1 << st.k2) + (st.x2 << k1)
-    lead = torch.ones_like(k1) << (k1 + st.k2)
+    """One stage with the coefficient side from the plan: int32 values in
+    int64 lanes, shifts and the signed case split as the reference's."""
+    m = wrap32(shift_left_int32(x1, torch.tensor(st.k2)) + (st.x2 << k1))
+    lead = shift_left_int32(torch.ones_like(k1), k1 + st.k2)
     p = torch.where(m < lead, lead + m, 2 * m) if case_split else lead + m
-    return torch.where(nz, p, 0)
+    return torch.where(nz, wrap32(p), 0)
 
 
 def plan_products(plan: RecursePlan, a: torch.Tensor) -> torch.Tensor:
@@ -215,7 +216,7 @@ def plan_products(plan: RecursePlan, a: torch.Tensor) -> torch.Tensor:
             p = (mitchell(am & b, am | b).to(torch.int64)
                  + mitchell(am & nb, (~am & mask) & b))
         else:                                                  # mitchell family
-            p, r = torch.zeros_like(a), a
+            p, r = torch.zeros_like(a), wrap32(a)
             for st in tap.stages:
                 k1 = leading_one_position(r)
                 x1 = r - torch.where(r > 0, torch.ones_like(k1) << k1, 0)

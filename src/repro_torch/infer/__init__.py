@@ -2,7 +2,7 @@
 stack: layer graphs, static-scale calibration, the per-layer routed forward
 runner (on the `mitchell_matmul` and `karatsuba_matmul` kernels on the
 card) and the Table-10-style error report. Counterpart of `repro.infer`;
-its serving adapter (`InferWorkload`) is not ported yet."""
+its serving adapter is `repro_torch.infer.serving.InferWorkload`."""
 from repro_torch.infer.calibrate import (
     CalibratedModel,
     LayerQuant,

@@ -9,10 +9,13 @@ the tap-product implementation of one `apply_filter` call:
   * `mult_impl` -- 'kcm' | 'recurse', or 'auto' to defer to the pass-level
                    resolution.
 
-The reference also tunes its TPU grid and consults a per-backend plan
-cache; the port has no plan cache yet, so `resolve_plan` is the
-reference's cache-miss path: separable specs run fused, explicit arguments
-win. Every plan gives the same bytes.
+The reference also tunes its TPU grid (block_rows, block_cols,
+batch_fold) and consults a per-backend plan cache. On the card the grid is
+not a choice: each kernel route launches one tile shape, which
+`PlanTile` spells for the cost model and the serving trace
+(`repro_torch.filters.pipeline.plan_tile`). With no plan cache yet,
+`resolve_plan` is the reference's cache-miss path: separable specs run
+fused, explicit arguments win. Every plan gives the same bytes.
 """
 from __future__ import annotations
 
@@ -26,6 +29,18 @@ class PlanConfig(NamedTuple):
 
     dataflow: str               # 'direct' | 'two_pass' | 'fused'
     mult_impl: str              # 'recurse' | 'kcm' | 'auto' (= defer)
+
+
+class PlanTile(NamedTuple):
+    """The output tile one block of a plan's kernels computes, as the
+    route launches it: the persistent kernels' 32x64 (`csrc/staging.cuh`)
+    or the tiled kernels' 16x32. The kernels never fold a batch into
+    rows, so `batch_fold` is False."""
+
+    route: str                  # 'persistent' | 'tiled'
+    block_rows: int
+    block_cols: int
+    batch_fold: bool = False
 
 
 def allowed_dataflows(separable_ok: bool, separable: bool | None,
@@ -52,4 +67,5 @@ def resolve_plan(*, separable_ok: bool, mult_impl: str = "auto",
                       mult_impl)
 
 
-__all__ = ["DATAFLOWS", "PlanConfig", "allowed_dataflows", "resolve_plan"]
+__all__ = ["DATAFLOWS", "PlanConfig", "PlanTile", "allowed_dataflows",
+           "resolve_plan"]
