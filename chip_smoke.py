@@ -54,19 +54,26 @@ Phases, each fatal on failure:
                accumulators equal to the int8 oracle, and the wide
                `karatsuba_matmul` must have been launched;
   8. scale  -- apply_filter(gaussian5, refmlm) on N=16 2048x2048 frames;
-  9. times  -- each kernel with CUDA events (median after warm-up) beside
-               its plain version, its bound and, where PyTorch has one call
-               that computes the same sums, that call; the matmul kernels at
-               the full-width shape; `conv_pass_kcm`'s measurement variants
-               (the tiled kernel it replaced, ROM per tile or once, cp.async
-               or stage_window window) at both shapes, on [variant] lines;
-               `fused_separable_kcm` beside its tiled kernel of the first
-               design (variant 0) for gaussian3 and gaussian5 at both shapes,
-               with the persistent instance's column prefix, shared memory a
-               block, resident blocks an SM, registers and spills;
-               the recurse kernels for every method beside the tiled kernel
-               of the first design (variant 0), on [variant] lines too;
- 10. serve  -- `repro_torch.serve.ImageFilterServer` on the card, after 8
+  9. tiles  -- each persistent conv kernel at each tile of the menu
+               (`repro_torch.tuning.blocks.TILE_MENU`; every tap shape it is
+               compiled for, every chunk of the recurse kernels' menu)
+               byte-equal to its plain version on the main-path and scale
+               frames and on them with operands past the ROMs and at the
+               int32 extremes; every multiplier at 8x480x640, refmlm at
+               16x2048x2048; [tile] lines: device ms and shared memory,
+               blocks an SM and registers of each kernel at each tile;
+ 10. tune   -- `python -m repro_torch.tuning.autotune --quick` into an empty
+               cache directory; `resolve_filter_plan` returns the stored
+               winner, and default-argument `apply_filter` gives the same
+               bytes as with an empty cache;
+ 11. sharded -- 16x2048x2048 gaussian5 through exec='sharded' on this card
+               (a 1x1 mesh), both halos, byte-equal to the local pass;
+ 12. streamed -- a 1x10980x10980 uint8 scene (a Sentinel-2 L1C 10 m granule's
+               grid) on a memmap streamed into a memmap at (2048, 2048) x 4
+               and (256, 256) x 8 tiles, byte-equal to one local pass of the
+               scene; a run killed at a tile and resumed, byte-identical and
+               recomputing only the unjournaled tiles; [stream] lines;
+ 13. serve  -- `repro_torch.serve.ImageFilterServer` on the card, after 8
                (the times phase follows it): both buckets warmed (480x640
                fingerprint frames: gaussian3, gaussian5, sobel_x, sharpen3,
                laplacian x kcm / recurse; 2048x2048 satellite frames:
@@ -79,9 +86,25 @@ Phases, each fatal on failure:
                round fails its seq alone. [serve] lines: frames a second and
                p50 / p99 latency per bucket and per kind (from the server's
                trace), the hit/miss and plan-memo counters, the profiler's
-               measured / plan_cost drift.
+               measured / plan_cost drift; then one streamed bucket and one
+               sharded bucket (8 frames each) served byte-equal to the
+               direct call, neither falling back to the local path.
+ 14. times  -- each kernel with CUDA events (median after warm-up) beside
+               its plain version, its bound and, where PyTorch has one call
+               that computes the same sums, that call; the matmul kernels at
+               the full-width shape; `conv_pass_kcm`'s measurement variants
+               (the tiled kernel it replaced, ROM per tile or once, cp.async
+               or stage_window window) at both shapes, on [variant] lines;
+               `fused_separable_kcm` beside its tiled kernel of the first
+               design (variant 0) for gaussian3 and gaussian5 at both shapes,
+               with the persistent instance's column prefix, shared memory a
+               block, resident blocks an SM, registers and spills;
+               the recurse kernels for every method beside the tiled kernel
+               of the first design (variant 0), on [variant] lines too;
 The line before the last is a JSON object naming the seven kernels with
-their numbers (and `serve_launches`, their launches in phase 10); the last
+their numbers (and `serve_launches`, their launches in phase 13; for the
+conv kernels `tile_launches`, the main path's launches by tile, and
+`tile_device_ms`, phase 9's device ms at 16x2048x2048 by tile); the last
 line is the run's result and device.
 """
 from __future__ import annotations
@@ -235,6 +258,9 @@ def kcm_variant(x: torch.Tensor, rom, kh: int, kw: int, shift: int,
     return out
 
 
+TILED = (16, 32)                # the tiled kernels' tile (kTileH x kTileW)
+
+
 def fused_kcm_tiled(x: torch.Tensor, row, col, shift: int, post: str) -> torch.Tensor:
     """fused_separable_kcm through the tiled kernel of the first design (the
     C entry given a zero prefix length): measurement variant 0, not counted
@@ -246,26 +272,48 @@ def fused_kcm_tiled(x: torch.Tensor, row, col, shift: int, post: str) -> torch.T
     launch(source, "fused_separable_kcm", argtypes, x.device, x.data_ptr(),
            row.table.data_ptr(), row.table.shape[1], row.fill, col.table.data_ptr(),
            col.table.shape[1], col.fill, 0, 0, out.data_ptr(), *x.shape, col.table.shape[0],
-           row.table.shape[0], shift, POSTS.index(post))
+           row.table.shape[0], shift, POSTS.index(post), *TILED)
     return out
 
 
-def fused_kcm_info(row, col) -> dict[str, int]:
-    """What the persistent fused_separable_kcm instance for these ROM stacks
-    takes on this card: its column prefix (`column_prefix`), dynamic shared
-    memory a block, resident blocks an SM, registers and local (spill)
-    bytes a thread."""
+def _info(source: str, entry: str, tile, *args) -> dict[str, int]:
+    """An info entry (csrc `persistent_info`) of `source`'s library for
+    `tile`: shared memory a block, blocks an SM, registers, local bytes."""
     import ctypes
 
-    from repro_torch.filters.conv import column_prefix
-    from repro_torch.kernels.build import launch
-    prefix, int16 = column_prefix(row, col)
+    from repro_torch.kernels.build import launch, library_name
     info = (ctypes.c_int * 4)()
-    launch("fused_separable", "fused_separable_kcm_info", (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
-           torch.device("cuda"), row.table.shape[1], col.table.shape[1], prefix, int(int16),
-           col.table.shape[0], row.table.shape[0], ctypes.addressof(info))
-    return {"prefix": prefix, "prefix_int16": int16, "smem_bytes": info[0],
-            "blocks_per_sm": info[1], "registers": info[2], "local_bytes": info[3]}
+    launch(library_name(source, tile), entry, (ctypes.c_int,) * len(args) + (ctypes.c_void_p,),
+           torch.device("cuda"), *args, ctypes.addressof(info))
+    return {"smem_bytes": info[0], "blocks_per_sm": info[1], "registers": info[2],
+            "local_bytes": info[3]}
+
+
+def fused_kcm_info(row, col, tile=None) -> dict[str, int]:
+    """What the persistent fused_separable_kcm instance for these ROM stacks
+    takes on this card at `tile` (None: the menu's first): its column
+    prefix (`column_prefix`), dynamic shared memory a block, resident
+    blocks an SM, registers and local (spill) bytes a thread."""
+    from repro_torch.filters.conv import column_prefix
+    prefix, int16 = column_prefix(row, col)
+    return {"prefix": prefix, "prefix_int16": int16,
+            **_info("fused_separable", "fused_separable_kcm_info", tile, row.table.shape[1],
+                    col.table.shape[1], prefix, int(int16), col.table.shape[0],
+                    row.table.shape[0])}
+
+
+def tile_info(kernel: str, tile, taps_shape, *, rom_len: int = 256, method: str = "refmlm",
+              nbits: int = 8, nbits2: int = 16, chunk: int = -1) -> dict[str, int]:
+    """What a persistent conv kernel instance takes on this card at `tile`:
+    conv_pass_kcm (a rom_len ROM stack), conv_pass_recurse or
+    fused_separable_recurse (the policies of method at nbits / nbits2)."""
+    code, _ = _method_args(method)
+    kh, kw = taps_shape
+    if kernel == "fused_separable_recurse":
+        return _info("fused_separable", "fused_separable_recurse_info", tile, kh, kw, code,
+                     nbits, nbits2, chunk)
+    return _info("conv_pass", "conv_pass_info", tile, int(kernel == "conv_pass_recurse"), kh,
+                 kw, rom_len, code, nbits, chunk)
 
 
 def _method_args(method: str) -> tuple[int, int]:
@@ -291,7 +339,7 @@ def recurse_tiled(x: torch.Tensor, taps, method: str, nbits: int, shift: int,
     out = torch.empty_like(x)
     launch(source, "conv_pass_recurse", argtypes, x.device, x.data_ptr(), coeffs.ctypes.data,
            None, *_method_args(method), nbits, out.data_ptr(), *x.shape, kh, kw, shift,
-           POSTS.index(post))
+           POSTS.index(post), -1, *TILED)
     return out
 
 
@@ -308,7 +356,7 @@ def fused_tiled(x: torch.Tensor, row, col, method: str, nbits: int, nbits2: int,
     out = torch.empty_like(x)
     launch(source, "fused_separable_recurse", argtypes, x.device, x.data_ptr(),
            rc.ctypes.data, cc.ctypes.data, None, None, *_method_args(method), nbits, nbits2,
-           out.data_ptr(), *x.shape, col.size, row.size, shift, POSTS.index(post))
+           out.data_ptr(), *x.shape, col.size, row.size, shift, POSTS.index(post), -1, *TILED)
     return out
 
 
@@ -634,6 +682,14 @@ def phase_main(device: torch.device) -> tuple[dict[str, int], torch.Tensor]:
     for name in FILTER_NAMES:
         assert torch.equal(outs["refmlm"][name], outs["exact"][name]), \
             f"refmlm != exact on {name}"
+    # the default plans come from the tuning cache (blocks_cuda.json): the
+    # fused and two-pass dataflows are also run by name
+    separable = [n for n in FILTER_NAMES if FILTER_BANK[n].separable]
+    for impl in ("kcm", "recurse"):
+        fused = filter_bank_apply(frames, separable, method="refmlm", fused=True,
+                                  mult_impl=impl)
+        for name, out in fused.items():
+            assert torch.equal(out, outs["refmlm"][name]), f"fused != default {name} {impl}"
     two_pass = filter_bank_apply(
         frames, [n for n in FILTER_NAMES if FILTER_BANK[n].separable],
         method="refmlm", fused=False)
@@ -672,14 +728,26 @@ def phase_main(device: torch.device) -> tuple[dict[str, int], torch.Tensor]:
         f"launches {launches}")
     missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
-    # every fused kcm and recurse launch of the main path (the bank's
-    # shapes) took the persistent kernel, none the tiled one
-    routes = dict(conv.ROUTE_LAUNCHES)
-    log(f"[main] launches by route {routes}")
+    # every launch of the main path (the bank's shapes) took a persistent
+    # kernel, none the tiled one
+    routes = route_launches()
+    log(f"[main] launches by route and tile {routes}")
     for name in conv.ROUTED:
-        assert routes[(name, "tiled")] == 0 and routes[(name, "persistent")] == launches[name], \
+        assert routes[name].get("tiled", 0) == 0 \
+            and sum(routes[name].values()) == launches[name], \
             f"{name}: a main-path launch took the tiled kernel: {routes}"
     return launches, torch.from_numpy(frames).to(device)
+
+
+def route_launches() -> dict[str, dict[str, int]]:
+    """conv.ROUTE_LAUNCHES by kernel: {'32x64': n, ...} for the persistent
+    tiles and {'tiled': n}."""
+    from repro_torch.filters import conv
+    out: dict[str, dict[str, int]] = {name: {} for name in conv.ROUTED}
+    for (name, route, tile), count in conv.ROUTE_LAUNCHES.items():
+        key = "tiled" if route == "tiled" else f"{tile[0]}x{tile[1]}"
+        out[name][key] = out[name].get(key, 0) + count
+    return out
 
 
 def phase_scale(device: torch.device) -> torch.Tensor:
@@ -775,6 +843,40 @@ def dispatch_breakdown(srv, imgs: np.ndarray, filt: str) -> dict[str, float]:
     return {name: statistics.median(v) for name, v in parts.items()}
 
 
+SCALE_OUT_JOBS = (("streamed", "gaussian5", "kcm"), ("sharded", "sharpen3", "recurse"))
+
+
+def scale_out_round(srv, frames: np.ndarray) -> None:
+    """One streamed bucket and one sharded bucket on a running server: 8
+    frames each, submitted together; every served byte equal to the direct
+    call, and neither bucket falls back to the local path."""
+    from repro_torch.filters import apply_filter, conv
+
+    torch.cuda.synchronize()
+    conv.reset_launches()
+    t0 = time.perf_counter()
+    futs = [(mode, filt, impl, j, time.perf_counter(),
+             srv.submit(frames[j], filt, method="refmlm", mult_impl=impl, exec=mode))
+            for mode, filt, impl in SCALE_OUT_JOBS for j in range(len(frames))]
+    lat: dict[str, list[float]] = {}
+    for mode, filt, impl, j, t_sub, fut in futs:
+        out = fut.result(120)
+        lat.setdefault(mode, []).append((time.perf_counter() - t_sub) * 1e3)
+        assert torch.equal(out, apply_filter(frames[j], filt, method="refmlm",
+                                             mult_impl=impl).cpu()), \
+            f"served {mode} != direct: {filt} {impl} frame {j}"
+    wall = time.perf_counter() - t0
+    st = srv.stats()
+    assert st["degraded"] == {}, f"a scale-out bucket fell back to local: {st['degraded']}"
+    launched = {k: v for k, v in conv.LAUNCHES.items() if v}
+    assert launched, "the scale-out round launched no conv kernel"
+    for mode, values in lat.items():
+        p50, p99 = _pcts(values)
+        log(f"[serve] exec={mode}: {len(values)} frames served byte-equal to the direct call; "
+            f"p50 {p50:.4f} ms p99 {p99:.4f} ms (submit to result, host clock)")
+    log(f"[serve] scale-out round {wall:.3f} s; launches {launched}; degraded {st['degraded']}")
+
+
 def phase_serve(device: torch.device) -> dict[str, int]:
     """`ImageFilterServer` on the card: warm both buckets, then 4 client
     threads submit 96 fingerprint frames (12 rounds of 8 same-bucket frames
@@ -867,7 +969,7 @@ def phase_serve(device: torch.device) -> dict[str, int]:
             t.join()
         wall = time.perf_counter() - t0
         launches = {**conv.LAUNCHES, **matmul_launches()}
-        routes = dict(conv.ROUTE_LAUNCHES)
+        routes = route_launches()
         stats = {"frames": frame_srv.stats(), "sats": sat_srv.stats()}
         for name, st in stats.items():
             assert st["failed"] == 0 and st["served"] == st["submitted"], (name, st)
@@ -889,10 +991,14 @@ def phase_serve(device: torch.device) -> dict[str, int]:
         log(f"[serve] dispatches x launches a call {want}")
         assert launches == want, f"launches {launches} != dispatches x per call {want}"
         for name in conv.ROUTED:
-            assert routes[(name, "tiled")] == 0, f"{name}: a served launch was tiled"
-        missing = [k for k in ("conv_pass_kcm", "conv_pass_recurse", "fused_separable_kcm",
-                               "fused_separable_recurse", "mitchell_matmul",
-                               "karatsuba_matmul_i8") if launches[k] == 0]
+            assert routes[name].get("tiled", 0) == 0, f"{name}: a served launch was tiled"
+        # the served plans come from the tuning cache, which picks each
+        # bucket's dataflow: every tap-product implementation served must
+        # have launched a conv kernel of its own (which ones, the
+        # dispatches x launches check above holds), and both infer kernels
+        missing = [k for k in ("mitchell_matmul", "karatsuba_matmul_i8") if launches[k] == 0]
+        missing += [impl for impl in SERVE_IMPLS
+                    if launches[f"conv_pass_{impl}"] + launches[f"fused_separable_{impl}"] == 0]
         assert not missing, f"kernels never launched by the server: {missing}"
 
         # served bytes == the direct call on the card
@@ -971,6 +1077,7 @@ def phase_serve(device: torch.device) -> dict[str, int]:
         st = frame_srv.stats()
         log(f"[serve] poison seq {k}: failed {[k]}, 7 neighbours re-served byte-equal; "
             f"retries {st['retries']} isolated {st['isolated']}")
+        scale_out_round(frame_srv, frames)
         for srv, imgs, filt in ((frame_srv, frames, "gaussian3"), (sat_srv, sats, "gaussian5")):
             parts = dispatch_breakdown(srv, imgs, filt)
             log(f"[serve] one idle dispatch of {len(imgs)}x{imgs.shape[1]}x{imgs.shape[2]} "
@@ -983,6 +1090,320 @@ def phase_serve(device: torch.device) -> dict[str, int]:
     log(f"[serve] summary {json.dumps(summary)}")
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s (host clock)")
     return launches
+
+
+def tile_cases(shape) -> dict[str, list]:
+    """The persistent conv kernels' cases of `phase_tiles` at `shape`: at the
+    main-path shape every persistent tap shape of each kernel (direct 3x3 and
+    5x5, the 1-D passes at 8 bits and the 16-bit column passes of the
+    two-pass dataflow; fused gaussian3 and gaussian5); at the scale shape
+    the Fig. 9 table and gaussian3 / gaussian5."""
+    from repro_torch.filters.bank import get_filter
+    from repro_torch.kernels.gaussian_conv import gaussian_kernel_3x3
+
+    fig9 = gaussian_kernel_3x3(1.0, 256).astype(np.int64)
+    g3, g5 = get_filter("gaussian3"), get_filter("gaussian5")
+    direct = [("fig9", fig9, 8, 8, "clip")]
+    if shape == MAIN_SHAPE:
+        direct += [("gaussian5", g5.taps.astype(np.int64), 8, g5.shift, g5.post)]
+        for spec in (g3, g5):
+            row, col = spec.sep_row.astype(np.int64), spec.sep_col.astype(np.int64)
+            direct += [(f"{spec.name} row", row[None, :], 8, 0, "none"),
+                       (f"{spec.name} col", col[:, None], 8, spec.shift, spec.post),
+                       (f"{spec.name} col nbits=16", col[:, None], 16, spec.shift, spec.post)]
+    return {"direct": direct, "fused": [g3, g5]}
+
+
+TILE_TIMED = ("fig9", "gaussian3", "gaussian5")
+
+
+def phase_tiles(inputs: dict[tuple, torch.Tensor], max_err: dict) -> dict[tuple, dict]:
+    """Each persistent conv kernel at each tile of the menu, byte-equal to its
+    plain version (and so to the menu's first tile) on the main-path and
+    scale frames and on them with `with_out_of_range`'s operands (the F1 /
+    F2 inputs); every multiplier at the main-path shape, refmlm at the scale
+    shape; the recurse kernels at every chunk of their menu. Then [tile]
+    lines: device ms of each kernel at each tile (fig9, gaussian3,
+    gaussian5; kcm and recurse refmlm) and what each instance takes on this
+    card (shared memory, blocks an SM, registers). -> {(kernel, filter,
+    shape, tile): numbers}."""
+    from repro_torch.filters import conv
+    from repro_torch.filters.bank import max_intermediate
+    from repro_torch.tuning.blocks import TILE_MENU
+
+    tiles = TILE_MENU["persistent"]
+    failures: list[str] = []
+    checked = 0
+    t0 = time.perf_counter()
+
+    def check(kernel: str, got, want, what: str) -> None:
+        nonlocal checked
+        checked += 1
+        check_equal(max_err, failures, kernel, got, want, what)
+
+    for si, shape in enumerate((MAIN_SHAPE, SCALE_SHAPE)):
+        frames = inputs[shape]
+        methods = METHODS if shape == MAIN_SHAPE else ("refmlm",)
+        cases = tile_cases(shape)
+        rng = np.random.default_rng(80 + si)
+        signed = torch.from_numpy(rng.integers(-4080, 4081, shape).astype(np.int32)).cuda() \
+            if shape == MAIN_SHAPE else None
+        for label, x in (("frames", frames), ("out-of-range", with_out_of_range(frames, 8, 90 + si))):
+            for method in methods:
+                for name, taps, nbits, shift, post in cases["direct"]:
+                    xin = signed if nbits == 16 and label == "frames" else x
+                    if nbits == 16 and label != "frames":
+                        xin = with_out_of_range(signed, 16, 95)
+                    kh, kw = taps.shape
+                    what = f"{name} {method} {label} {shape}"
+                    rom = conv.rom_stack(method, taps, nbits, xin.device)
+                    kw_ = dict(shift=shift, post=post)
+                    want = conv.conv_pass_kcm_plain(xin, rom, kh, kw, **kw_)
+                    for tile in tiles:
+                        check("conv_pass_kcm", conv.conv_pass_kcm(xin, rom, kh, kw, tile=tile, **kw_),
+                              want, f"{tile} {what}")
+                    rk = dict(method=method, nbits=nbits, **kw_)
+                    want = conv.conv_pass_recurse_plain(xin, taps, **rk)
+                    chunks = (None,) + conv.chunk_menu("conv_pass_recurse", method, nbits, kh, kw)
+                    for tile in tiles:
+                        for chunk in chunks:
+                            check("conv_pass_recurse",
+                                  conv.conv_pass_recurse(xin, taps, tile=tile, chunk=chunk, **rk),
+                                  want, f"{tile} chunk {chunk} {what}")
+                for spec in cases["fused"]:
+                    row, col = spec.sep_row.astype(np.int64), spec.sep_col.astype(np.int64)
+                    nb2 = conv.second_pass_nbits(max_intermediate(spec), int(np.abs(col).max()))
+                    kw_ = dict(shift=spec.shift, post=spec.post)
+                    what = f"{spec.name} {method} {label} {shape}"
+                    rr = conv.rom_stack(method, row, 8, x.device)
+                    cr = conv.rom_stack(method, col, nb2, x.device)
+                    want = conv.fused_separable_kcm_plain(x, rr, cr, **kw_)
+                    for tile in tiles:
+                        check("fused_separable_kcm",
+                              conv.fused_separable_kcm(x, rr, cr, tile=tile, **kw_), want,
+                              f"{tile} {what}")
+                    rk = dict(method=method, nbits=8, nbits2=nb2, **kw_)
+                    want = conv.fused_separable_recurse_plain(x, row, col, **rk)
+                    chunks = (None,) + conv.chunk_menu("fused_separable_recurse", method, 8,
+                                                       col.size, row.size, nb2)
+                    for tile in tiles:
+                        for chunk in chunks:
+                            check("fused_separable_recurse",
+                                  conv.fused_separable_recurse(x, row, col, tile=tile,
+                                                               chunk=chunk, **rk),
+                                  want, f"{tile} chunk {chunk} {what}")
+        torch.cuda.synchronize()
+    log(f"[tile] {checked} comparisons of every persistent kernel at tiles {list(tiles)} "
+        f"(and every chunk of the menu) with its plain version, frames and out-of-range "
+        f"operands, in {time.perf_counter() - t0:.1f} s; max |err| "
+        f"{ {k: max_err[k] for k in conv.KERNELS} }")
+    if failures:
+        raise AssertionError("a tile disagrees with the plain version:\n"
+                             + "\n".join(failures[:20]))
+
+    results: dict[tuple, dict] = {}
+    for shape in (MAIN_SHAPE, SCALE_SHAPE):
+        x = inputs[shape]
+        cases = tile_cases(shape)
+        fig9 = cases["direct"][0][1]
+        rom9 = conv.rom_stack("refmlm", fig9, 8, x.device)
+        for tile in tiles:
+            calls = {("conv_pass_kcm", "fig9"): (
+                         lambda t=tile: conv.conv_pass_kcm(x, rom9, 3, 3, shift=8, post="clip",
+                                                           tile=t),
+                         tile_info("conv_pass_kcm", tile, (3, 3))),
+                     ("conv_pass_recurse", "fig9"): (
+                         lambda t=tile: conv.conv_pass_recurse(x, fig9, method="refmlm", nbits=8,
+                                                               shift=8, post="clip", tile=t),
+                         tile_info("conv_pass_recurse", tile, (3, 3)))}
+            for spec in cases["fused"]:
+                row, col = spec.sep_row.astype(np.int64), spec.sep_col.astype(np.int64)
+                rr = conv.rom_stack("refmlm", row, 8, x.device)
+                cr = conv.rom_stack("refmlm", col, 16, x.device)
+                kw_ = dict(shift=spec.shift, post=spec.post)
+                calls[("fused_separable_kcm", spec.name)] = (
+                    lambda t=tile, rr=rr, cr=cr, kw_=kw_: conv.fused_separable_kcm(
+                        x, rr, cr, tile=t, **kw_),
+                    fused_kcm_info(rr, cr, tile))
+                calls[("fused_separable_recurse", spec.name)] = (
+                    lambda t=tile, row=row, col=col, kw_=kw_: conv.fused_separable_recurse(
+                        x, row, col, method="refmlm", nbits=8, nbits2=16, tile=t, **kw_),
+                    tile_info("fused_separable_recurse", tile, (col.size, row.size)))
+            for (kernel, filt), (fn, info) in calls.items():
+                row_ = {"kernel": kernel, "filter": filt, "method": "refmlm",
+                        "shape": list(shape), "tile": f"{tile[0]}x{tile[1]}",
+                        "ms": time_ms(fn, 20), "device_ms": time_ms_batched(fn), **info}
+                results[(kernel, filt, tuple(shape), tile)] = row_
+                log(f"[tile] {json.dumps(row_)}")
+        torch.cuda.empty_cache()
+    return results
+
+
+TUNE_TIMEOUT_S = 600
+
+
+def phase_tune(inputs: dict[tuple, torch.Tensor]) -> None:
+    """`python -m repro_torch.tuning.autotune --quick` on the card into an
+    empty temporary cache directory; then `resolve_filter_plan` returns the
+    stored winner and `apply_filter` on default arguments gives the same
+    bytes as with an empty cache. The committed cache (blocks_cuda.json) is
+    restored after."""
+    import os
+    import tempfile
+
+    from repro_torch.filters import apply_filter, resolve_filter_plan
+    from repro_torch.tuning import invalidate_cache, load_plans, plan_key
+    from repro_torch.tuning.autotune import PLAN_QUICK
+    from repro_torch.tuning.cache import CACHE_ENV, load_meta
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tuned, tempfile.TemporaryDirectory() as empty:
+        env[CACHE_ENV] = tuned
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.tuning.autotune", "--quick"],
+                              env=env, capture_output=True, text=True, timeout=TUNE_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if "winner" in line or "wrote" in line:
+                log(f"[tune] {line}")
+        assert proc.returncode == 0, f"autotune --quick failed:\n{proc.stdout}\n{proc.stderr}"
+        prior = os.environ.get(CACHE_ENV)
+        try:
+            os.environ[CACHE_ENV] = tuned
+            invalidate_cache()
+            plans = load_plans("cuda")
+            log(f"[tune] autotune --quick in {secs:.1f} s (host clock, its own process); "
+                f"{len(plans)} plans; chunk rows "
+                f"{json.dumps({k: v['winner'] for k, v in load_meta('cuda').get('chunks', {}).items()})}")
+            x = inputs[MAIN_SHAPE]
+            outs = {}
+            for name, n, h, w in PLAN_QUICK:
+                entry = plans[plan_key(name, n, h, w)]
+                got = resolve_filter_plan(name, n, h, w, device="cuda")
+                assert tuple(got) == tuple(entry[k] for k in (
+                    "dataflow", "mult_impl", "block_rows", "block_cols", "batch_fold")), \
+                    f"{name}: resolve_filter_plan {got} is not the stored winner {entry}"
+                log(f"[tune] {name} n{n}x{h}x{w}: resolve_filter_plan -> {tuple(got)} "
+                    f"(the stored winner, {entry['us_per_call']} us)")
+                outs[name] = apply_filter(x, name)
+            os.environ[CACHE_ENV] = empty
+            invalidate_cache()
+            for name, out in outs.items():
+                assert torch.equal(out, apply_filter(x, name)), \
+                    f"{name}: the tuned plan's bytes differ from the cache-miss plan's"
+            log(f"[tune] apply_filter on default arguments: tuned bytes == empty-cache bytes "
+                f"for {list(outs)}")
+        finally:
+            if prior is None:
+                os.environ.pop(CACHE_ENV, None)
+            else:
+                os.environ[CACHE_ENV] = prior
+            invalidate_cache()
+
+
+SCENE = (10980, 10980)          # a Sentinel-2 L1C 10 m granule's pixel grid
+STREAM_RUNS = (((2048, 2048), 4), ((256, 256), 8))   # (tile, tile_batch)
+STREAM_KILL_AT = 20             # the tile index a fault kills the first run at
+
+
+def phase_streamed() -> None:
+    """A 1 x 10980 x 10980 uint8 scene from the seed on an np.memmap,
+    streamed (gaussian5, refmlm, kcm) into a memmap `out` at (2048, 2048) x 4
+    and (256, 256) x 8 tiles, each byte-equal to one local `apply_filter` of
+    the whole scene on the card; then a `FaultInjector` at SITE_TILE kills a
+    run midway and `resume=True` finishes it byte-identical, recomputing only
+    the unjournaled tiles. [stream] lines: Mpx/s, tiles, batches, host ms
+    against device ms."""
+    import tempfile
+
+    from repro_torch.distribute import journal_fingerprint, load_journal, stream_filter
+    from repro_torch.filters import apply_filter
+    from repro_torch.runtime.fault import SITE_TILE, FaultInjector, InjectedFault, fault_scope
+
+    h, w = SCENE
+    kw = dict(method="refmlm", mult_impl="kcm")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        g = torch.Generator(device="cuda").manual_seed(17)
+        yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+        xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+        field = 128 + 90 * torch.sin(xx / 37.0) * torch.cos(yy / 53.0)
+        noise = torch.randint(-30, 31, (h, w), generator=g, device="cuda")
+        scene = (field + noise).clamp(0, 255).to(torch.uint8)
+        src = np.memmap(tmp / "scene.u8", np.uint8, "w+", shape=(1, h, w))
+        src[0] = scene.cpu().numpy()
+        src.flush()
+        src = np.memmap(tmp / "scene.u8", np.uint8, "r", shape=(1, h, w))
+        t1 = time.perf_counter()
+        local = apply_filter(scene[None], "gaussian5", **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        local = local.cpu().numpy()
+        log(f"[stream] scene 1x{h}x{w} uint8 ({h * w / 1e6:.1f} MB) made on the card and "
+            f"written to a memmap in {t1 - t0:.3f} s; one local apply_filter of the whole "
+            f"scene {(t2 - t1) * 1e3:.3f} ms (host clock, the scene already on the card)")
+        del scene
+        torch.cuda.empty_cache()
+        for tile, tile_batch in STREAM_RUNS:
+            out = np.memmap(tmp / f"out{tile[0]}.u8", np.uint8, "w+", shape=(1, h, w))
+            stats: dict = {}
+            t0 = time.perf_counter()
+            stream_filter(src, "gaussian5", tile=tile, tile_batch=tile_batch, out=out,
+                          stats=stats, **kw)
+            secs = time.perf_counter() - t0
+            assert np.array_equal(np.asarray(out), local), \
+                f"streamed {tile} x {tile_batch} != the local pass"
+            log(f"[stream] tile {tile} x {tile_batch}: byte-equal to the local pass; "
+                f"{h * w / secs / 1e6:.3f} Mpx/s ({secs:.3f} s host clock); "
+                f"{stats['tiles']} tiles in {stats['batches']} batches; host "
+                f"{stats['host_s'] * 1e3:.3f} ms (gather, write, journal) against device "
+                f"{stats['device_s'] * 1e3:.3f} ms (copy in, filter, copy back)")
+        tile, tile_batch = STREAM_RUNS[0]
+        out = np.memmap(tmp / "resumed.u8", np.uint8, "w+", shape=(1, h, w))
+        inj = FaultInjector().at_index(SITE_TILE, STREAM_KILL_AT)
+        try:
+            with fault_scope(inj):
+                stream_filter(src, "gaussian5", tile=tile, tile_batch=tile_batch, out=out, **kw)
+        except InjectedFault:
+            pass
+        else:
+            raise AssertionError("the injected tile fault did not stop the run")
+        fp = journal_fingerprint((1, h, w), "gaussian5", *tile, kw)
+        done = load_journal(f"{out.filename}.journal", fp)
+        total = -(-h // tile[0]) * -(-w // tile[1])
+        counter = FaultInjector()
+        with fault_scope(counter):
+            stream_filter(src, "gaussian5", tile=tile, tile_batch=tile_batch, out=out,
+                          resume=True, **kw)
+        recomputed = counter.calls.get(SITE_TILE, 0)
+        assert recomputed == total - len(done), (recomputed, total, len(done))
+        assert np.array_equal(np.asarray(out), local), "the resumed run differs"
+        log(f"[stream] killed at tile {STREAM_KILL_AT} of {total} ({len(done)} journaled); "
+            f"resume=True recomputed {recomputed} tiles; byte-identical to the uninterrupted "
+            f"run")
+
+
+def phase_sharded(inputs: dict[tuple, torch.Tensor]) -> None:
+    """16x2048x2048 gaussian5 through `exec='sharded'` on this card
+    (devices=1, a 1x1 mesh), halo='exchange' and 'embedded', byte-equal to
+    the local pass."""
+    from repro_torch.distribute import filter_mesh
+    from repro_torch.filters import apply_filter
+
+    x = inputs[SCALE_SHAPE]
+    local = apply_filter(x, "gaussian5", method="refmlm")
+    mesh = filter_mesh(1, n=x.shape[0])
+    for halo in ("exchange", "embedded"):
+        fn = lambda halo=halo: apply_filter(x, "gaussian5", method="refmlm", exec="sharded",
+                                            devices=1, halo=halo)
+        got = fn()
+        assert torch.equal(got, local), f"sharded {halo} != local"
+        log(f"[sharded] {SCALE_SHAPE} gaussian5 refmlm on mesh {mesh.shape} "
+            f"{mesh.devices.flat[0]}: halo={halo} byte-equal to local; "
+            f"{time_ms(fn, 5)} ms a call (CUDA events)")
+    log(f"[sharded] local {time_ms(lambda: apply_filter(x, 'gaussian5', method='refmlm'), 5)} "
+        f"ms a call (CUDA events)")
 
 
 def time_ms(fn, runs: int, warmup: int = 2) -> float:
@@ -1601,12 +2022,18 @@ def main() -> int:
     phase_range_parity(max_err)
     phase_matmul_parity(max_err, device)
     launches, main_frames = phase_main(device)
+    main_routes = route_launches()
     mm_launches, (x, w) = phase_matmul_main(device)
     infer_launches = phase_infer_main(device)
     for name in ("mitchell_matmul", "karatsuba_matmul_i8"):
         launches[name] = mm_launches[name] + infer_launches[name]
     launches["karatsuba_matmul"] = phase_wide_main(device)["karatsuba_matmul"]
     scale_frames = phase_scale(device)
+    inputs = {MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames}
+    tile_times = phase_tiles(inputs, max_err)
+    phase_tune(inputs)
+    phase_sharded(inputs)
+    phase_streamed()
     serve_launches = phase_serve(device)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
@@ -1623,6 +2050,10 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
+            "tile_launches": main_routes[name],
+            "tile_device_ms": {row["tile"]: row["device_ms"] for (k, _, shape, _), row
+                               in tile_times.items() if k == name and shape == SCALE_SHAPE
+                               and row["filter"] in ("fig9", "gaussian5")},
         })
     for name, key in (("mitchell_matmul", ("mitchell_matmul", 0, True)),
                       ("karatsuba_matmul", ("karatsuba_matmul", True)),

@@ -20,8 +20,9 @@
 // operations: per tap, its pixel-side work (the coefficient side comes from
 // a host plan), e.g. 2 operations a non-zero 2x2 leaf for REFMLM.
 //
-// conv_pass_kcm: a persistent grid (as many 128-thread blocks as the SMs
-// hold at once) walks over 64 x 32 output tiles. Each block stages an 8-bit
+// conv_pass_kcm: a persistent grid (as many blocks as the SMs hold at once)
+// walks over the output tiles of the library's TileShape (staging.cuh; the
+// menu is 32 x 64 and 16 x 64, rows x columns, one library each). Each block stages an 8-bit
 // ROM stack (<= 32 KB) in shared memory once, not once per tile; a 16-bit
 // one (65,536 entries per tap, the two-pass second pass) is read from
 // global memory through the read-only path and stays in L2. A tile's input
@@ -30,12 +31,14 @@
 // cp.async into one of two shared buffers while the block computes the
 // tile before it: 16-byte copies from a 4-aligned column where the rows
 // allow it (W % 4 == 0), else 4-byte copies, with no divide per element.
-// A thread owns 16 rows of one column, so each window element it needs is
+// A thread owns R rows of one column (16 or 8), so each window element it needs is
 // read from shared memory kw times (once per tap column) and reused over
 // the kh tap rows from registers, not read kh * kw times.
 //
-// conv_pass_recurse: the same persistent grid, cp.async window and 16 rows
-// a thread, compiled per bank tap shape and per tap policy (multipliers.cuh).
+// conv_pass_recurse: the same persistent grid, cp.async window and R rows
+// a thread, compiled per bank tap shape and per tap policy (multipliers.cuh);
+// for REFMLM's 8-bit policy at 3x3 taps also per chunk of the menu
+// (with_chunk), which the C entry takes for the tuner's sweep.
 // Every coefficient-only part of a product is a launch constant, worked out
 // once on the host (repro_torch.filters.recurse_plan): REFMLM's non-zero
 // coefficient digits with the packed truth table of each 2x2 leaf, the
@@ -54,6 +57,7 @@
 // or stage_window, no taps), or through the tiled kernel, so that one run
 // can time where the difference lies. No entry point of the port calls it.
 #include <tuple>
+#include <type_traits>
 
 #include "staging.cuh"
 
@@ -98,21 +102,21 @@ conv_pass_kcm_tiled_kernel(const int32_t* __restrict__ x, const int32_t* __restr
       apply_post(narrow_carry(acc, carry_bits), post, shift);
 }
 
-// The kKcmRows sums of one thread for a KH x KW tap shape: window row wr
+// The TS::kRows sums of one thread for a KH x KW tap shape: window row wr
 // (from the thread's first row) holds tap row wr - i of output row i, so
 // each element is read once per tap column and reused for every tap row
 // from a register. Every loop unrolls and the tap-row tests fold away.
-template <int KH, int KW>
-__device__ __forceinline__ void kcm_rows(uint32_t (&acc)[kKcmRows], const int32_t* win,
+template <class TS, int KH, int KW>
+__device__ __forceinline__ void kcm_rows(uint32_t (&acc)[TS::kRows], const int32_t* win,
                                          int cols, const int32_t* table, int rom_len,
                                          int32_t fill) {
 #pragma unroll
-  for (int wr = 0; wr < kKcmRows + KH - 1; ++wr) {
+  for (int wr = 0; wr < TS::kRows + KH - 1; ++wr) {
     int32_t v[KW];
 #pragma unroll
     for (int dj = 0; dj < KW; ++dj) v[dj] = win[wr * cols + dj];
 #pragma unroll
-    for (int i = 0; i < kKcmRows; ++i) {
+    for (int i = 0; i < TS::kRows; ++i) {
       const int di = wr - i;
       if (di >= 0 && di < KH) {
 #pragma unroll
@@ -123,41 +127,41 @@ __device__ __forceinline__ void kcm_rows(uint32_t (&acc)[kKcmRows], const int32_
   }
 }
 
-// KH x KW: the tap shape; kRomInSmem: the ROM stack is copied to shared
+// TS: the tile; KH x KW: the tap shape; kRomInSmem: the ROM stack is copied to shared
 // memory (8-bit ROMs); kRomEachTile: copied again for every tile (a
 // measurement variant); kAsync: the next tile's window is copied with
 // cp.async during this one's compute, else each tile stages its window with
 // stage_window (a variant); kTaps false: no tap products, the output is the
 // window's centre pixel (a variant that times the staging and the stores
 // alone).
-template <int KH, int KW, bool kRomInSmem, bool kRomEachTile, bool kAsync, bool kTaps>
-__global__ void __launch_bounds__(kKcmThreads)
+template <class TS, int KH, int KW, bool kRomInSmem, bool kRomEachTile, bool kAsync, bool kTaps>
+__global__ void __launch_bounds__(TS::kThreads)
 conv_pass_kcm_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ rom,
                      int rom_len, int32_t fill, int carry_bits, int32_t* __restrict__ out,
                      int n, int h, int w, int shift, int post, int vec) {
   extern __shared__ __align__(16) int32_t smem[];
-  const KcmWindow ws(KH, KW);
+  const KcmWindow<TS> ws(KH, KW);
   int32_t* srom = smem + (kAsync ? 2 : 1) * ws.elems();
   const int32_t* table = kRomInSmem ? srom : rom;
   const int rom_count = KH * KW * rom_len;
   if constexpr (kRomInSmem && !kRomEachTile) stage_rom(srom, rom, rom_count);
-  const int tx = threadIdx.x, r0 = threadIdx.y * kKcmRows;
+  const int tx = threadIdx.x, r0 = threadIdx.y * TS::kRows;
   const int c = tx + ws.pad_l - KW / 2;              // window column of tap column 0
   const size_t plane = static_cast<size_t>(h) * w;
-  persistent_tiles<KH, KW, kAsync>(x, n, h, w, vec, smem,
+  persistent_tiles<TS, KH, KW, kAsync>(x, n, h, w, vec, smem,
                                    [&](const int32_t* win, int img, int y0, int x0) {
     if constexpr (kRomInSmem && kRomEachTile) {
       stage_rom(srom, rom, rom_count);
       __syncthreads();
     }
-    uint32_t acc[kKcmRows] = {};
+    uint32_t acc[TS::kRows] = {};
     if constexpr (!kTaps) {           // a variant: the window's centre pixel, no taps
 #pragma unroll
-      for (int i = 0; i < kKcmRows; ++i) acc[i] = win[(r0 + i + KH / 2) * ws.cols + c + KW / 2];
+      for (int i = 0; i < TS::kRows; ++i) acc[i] = win[(r0 + i + KH / 2) * ws.cols + c + KW / 2];
     } else {
-      kcm_rows<KH, KW>(acc, win + r0 * ws.cols + c, ws.cols, table, rom_len, fill);
+      kcm_rows<TS, KH, KW>(acc, win + r0 * ws.cols + c, ws.cols, table, rom_len, fill);
 #pragma unroll
-      for (int i = 0; i < kKcmRows; ++i) acc[i] = narrow_carry(acc[i], carry_bits);
+      for (int i = 0; i < TS::kRows; ++i) acc[i] = narrow_carry(acc[i], carry_bits);
     }
     store_rows(out + img * plane, acc, h, w, x0 + tx, y0 + r0, shift, post);
   });
@@ -205,19 +209,19 @@ void launch_recurse(dim3 grid, size_t smem, cudaStream_t stream, const int32_t* 
       x, coeffs, nbits, num_ecc, out, h, w, kh, kw, shift, post);
 }
 
-// Launch the persistent kcm kernel: as many blocks as the SMs hold at once
-// at this shared-memory size, at most one per tile.
-template <int KH, int KW, bool kRomInSmem, bool kRomEachTile, bool kAsync,
+// Launch the persistent kcm kernel on TS tiles: as many blocks as the SMs
+// hold at once at this shared-memory size, at most one per tile.
+template <class TS, int KH, int KW, bool kRomInSmem, bool kRomEachTile, bool kAsync,
           bool kTaps = true>
 int launch_kcm(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill, int carry_bits,
                int32_t* out, int n, int h, int w, int shift, int post, cudaStream_t stream) {
-  const KcmWindow win(KH, KW);
+  const KcmWindow<TS> win(KH, KW);
   const size_t rom_bytes =
       kRomInSmem ? static_cast<size_t>(KH) * KW * rom_len * sizeof(int32_t) : 0;
   const size_t smem = (kAsync ? 2 : 1) * win.elems() * sizeof(int32_t) + rom_bytes;
   const int vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  return launch_persistent(conv_pass_kcm_kernel<KH, KW, kRomInSmem, kRomEachTile, kAsync, kTaps>,
-                           smem, stream, n, h, w, x, rom, rom_len, fill, carry_bits, out, n, h,
+  return launch_persistent<TS>(
+      conv_pass_kcm_kernel<TS, KH, KW, kRomInSmem, kRomEachTile, kAsync, kTaps>, smem, stream, n, h, w, x, rom, rom_len, fill, carry_bits, out, n, h,
                            w, shift, post, vec);
 }
 
@@ -234,16 +238,25 @@ int launch_tiled(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether a kh x kw tap shape runs the persistent kernel: the bank's shapes
+// (repro_torch.tuning.blocks.PERSISTENT_SHAPES); any other runs the tiled one.
+inline bool kcm_persistent_shape(int kh, int kw) {
+  return (kh == 3 && kw == 3) || (kh == 5 && kw == 5) || (kh == 1 && (kw == 3 || kw == 5)) ||
+         (kw == 1 && (kh == 3 || kh == 5));
+}
+
 // The bank's tap shapes (3x3 direct, 3 and 5 taps a separable pass) run the
-// persistent kernel compiled for their shape; any other shape the tiled one.
+// persistent kernel compiled for their shape on the library's tile; any
+// other shape the tiled one.
 template <bool kRomInSmem>
 int launch_kcm_shape(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill,
                      int carry_bits, int32_t* out, int n, int h, int w, int kh, int kw,
                      int shift, int post, cudaStream_t stream) {
-#define REPRO_KCM_SHAPE(KH, KW)                                                            \
-  if (kh == KH && kw == KW)                                                                \
-    return launch_kcm<KH, KW, kRomInSmem, false, true>(x, rom, rom_len, fill, carry_bits, \
-                                                       out, n, h, w, shift, post, stream);
+#define REPRO_KCM_SHAPE(KH, KW)                                                             \
+  if (kh == KH && kw == KW)                                                                 \
+    return launch_kcm<LibTile, KH, KW, kRomInSmem, false, true>(x, rom, rom_len, fill,     \
+                                                                carry_bits, out, n, h, w,  \
+                                                                shift, post, stream);
   REPRO_KCM_SHAPE(3, 3)
   REPRO_KCM_SHAPE(5, 5)
   REPRO_KCM_SHAPE(1, 3)
@@ -256,24 +269,24 @@ int launch_kcm_shape(const int32_t* x, const int32_t* rom, int rom_len, int32_t 
 }
 
 // conv_pass_recurse on the bank's tap shapes: the staging of the persistent
-// kcm kernel (persistent_tiles, staging.cuh), 16 rows a thread, and every
-// product from the host plan by the tap policy `Taps` (multipliers.cuh).
-template <int KH, int KW, class Taps>
-__global__ void __launch_bounds__(kKcmThreads)
+// kcm kernel (persistent_tiles, staging.cuh), TS::kRows rows a thread, and
+// every product from the host plan by the tap policy `Taps` (multipliers.cuh).
+template <class TS, int KH, int KW, class Taps>
+__global__ void __launch_bounds__(TS::kThreads)
 conv_pass_recurse_tiles_kernel(const int32_t* __restrict__ x,
                                const __grid_constant__ TapPlan<kPlanTaps> plan, uint32_t mask,
                                int stages, int32_t* __restrict__ out, int n, int h, int w,
                                int shift, int post, int vec) {
   extern __shared__ __align__(16) int32_t smem[];
-  const KcmWindow ws(KH, KW);
-  const int tx = threadIdx.x, r0 = threadIdx.y * kKcmRows;
+  const KcmWindow<TS> ws(KH, KW);
+  const int tx = threadIdx.x, r0 = threadIdx.y * TS::kRows;
   const int c = tx + ws.pad_l - KW / 2;              // window column of tap column 0
   const size_t plane = static_cast<size_t>(h) * w;
-  persistent_tiles<KH, KW>(x, n, h, w, vec, smem,
-                           [&](const int32_t* win, int img, int y0, int x0) {
-    uint32_t acc[kKcmRows] = {};
-    recurse_rows<KH, KW, kKcmRows, Taps>(acc, win + r0 * ws.cols + c, ws.cols, plan, mask,
-                                         stages);
+  persistent_tiles<TS, KH, KW>(x, n, h, w, vec, smem,
+                               [&](const int32_t* win, int img, int y0, int x0) {
+    uint32_t acc[TS::kRows] = {};
+    recurse_rows<KH, KW, TS::kRows, Taps>(acc, win + r0 * ws.cols + c, ws.cols, plan, mask,
+                                          stages);
     store_rows(out + img * plane, acc, h, w, x0 + tx, y0 + r0, shift, post);
   });
 }
@@ -285,24 +298,33 @@ struct RecursePass {
   const int32_t* plan;
   int method, num_ecc, nbits;
   int32_t* out;
-  int n, h, w, kh, kw, shift, post;
+  int n, h, w, kh, kw, shift, post, chunk;
   cudaStream_t stream;
 };
 
-template <int KH, int KW, class Taps>
+template <class TS, int KH, int KW, class Taps>
 int launch_recurse_tiles(const RecursePass& a, const TapPlan<kPlanTaps>& plan, int stages) {
-  const size_t smem = 2 * KcmWindow(KH, KW).elems() * sizeof(int32_t);
+  const size_t smem = 2 * KcmWindow<TS>(KH, KW).elems() * sizeof(int32_t);
   const uint32_t mask = static_cast<uint32_t>((1ull << a.nbits) - 1);
   const int vec = a.w % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
-  return launch_persistent(conv_pass_recurse_tiles_kernel<KH, KW, Taps>, smem, a.stream,
-                           a.n, a.h, a.w, a.x, plan, mask, stages, a.out, a.n, a.h, a.w,
-                           a.shift, a.post, vec);
+  return launch_persistent<TS>(conv_pass_recurse_tiles_kernel<TS, KH, KW, Taps>, smem,
+                               a.stream, a.n, a.h, a.w, a.x, plan, mask, stages, a.out, a.n,
+                               a.h, a.w, a.shift, a.post, vec);
 }
+
+// The chunks of the menu (with_chunk) are compiled for REFMLM's 8-bit
+// policy at 3x3 taps, the Fig. 9 table's shape, which the tuner sweeps.
+template <int KH, int KW, class Taps>
+constexpr bool kChunkSwept = KH == 3 && KW == 3 && std::is_same_v<Taps, TableTaps<4>>;
 
 template <int KH, int KW>
 int recurse_shape(const RecursePass& a, const TapPlan<kPlanTaps>& plan, int stages) {
   return method_taps(a.method, a.nbits, [&](auto tag) {
-    return launch_recurse_tiles<KH, KW, typename decltype(tag)::type>(a, plan, stages);
+    using Taps = typename decltype(tag)::type;
+    return with_chunk<Taps, kChunkSwept<KH, KW, Taps>>(a.chunk, [&](auto ctag) {
+      return launch_recurse_tiles<LibTile, KH, KW, typename decltype(ctag)::type>(a, plan,
+                                                                                 stages);
+    });
   });
 }
 
@@ -357,12 +379,18 @@ using namespace repro;
 // x, out: device (n, h, w) int32; rom: device (kh*kw, rom_len) int32 with the
 // coefficient signs baked in; fill: what a gather past the ROM gives;
 // carry_bits: 16 or 32, the reference's carry (RomStack in
-// repro_torch.filters.conv). Returns cudaGetLastError() after the launch.
+// repro_torch.filters.conv). tile_rows x tile_cols: the tile to run, this
+// library's (LibTile) for the persistent shapes, kTileH x kTileW for the
+// tiled kernel's. Returns cudaGetLastError() after the launch.
 extern "C" int conv_pass_kcm(const int32_t* x, const int32_t* rom, int rom_len, int32_t fill,
                              int carry_bits, int32_t* out, int n, int h, int w, int kh, int kw,
-                             int shift, int post, cudaStream_t stream) {
+                             int shift, int post, int tile_rows, int tile_cols,
+                             cudaStream_t stream) {
   if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK || n < 1 || h < 1 || w < 1 ||
       (carry_bits != 16 && carry_bits != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kcm_persistent_shape(kh, kw) ? !is_lib_tile(tile_rows, tile_cols)
+                                   : (tile_rows != kTileH || tile_cols != kTileW))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t rom_bytes = static_cast<size_t>(kh) * kw * rom_len * sizeof(int32_t);
   return rom_bytes <= kSmemRomBytes
@@ -373,7 +401,7 @@ extern "C" int conv_pass_kcm(const int32_t* x, const int32_t* rom, int rom_len, 
 }
 
 // conv_pass_kcm at 3x3 taps and an 8-bit ROM stack (in shared memory)
-// through one of the measurement variants: 0 the tiled kernel; the
+// through one of the measurement variants, on the library's tile: 0 the tiled kernel; the
 // persistent kernel with 1 ROM per tile and stage_window, 2 ROM per tile and
 // cp.async, 3 ROM once and stage_window, 4 ROM once and cp.async (=
 // conv_pass_kcm); 5 as 4 without the taps (the window's centre pixel out:
@@ -392,13 +420,56 @@ extern "C" int conv_pass_kcm_variant(const int32_t* x, const int32_t* rom, int r
     case 0:
       return launch_tiled<true>(x, rom, rom_len, fill, carry_bits, out, n, h, w, kh, kw, shift,
                                 post, stream);
-    case 1: return std::apply(launch_kcm<3, 3, true, true, false>, args);
-    case 2: return std::apply(launch_kcm<3, 3, true, true, true>, args);
-    case 3: return std::apply(launch_kcm<3, 3, true, false, false>, args);
-    case 4: return std::apply(launch_kcm<3, 3, true, false, true>, args);
-    case 5: return std::apply(launch_kcm<3, 3, true, false, true, false>, args);
+    case 1: return std::apply(launch_kcm<LibTile, 3, 3, true, true, false>, args);
+    case 2: return std::apply(launch_kcm<LibTile, 3, 3, true, true, true>, args);
+    case 3: return std::apply(launch_kcm<LibTile, 3, 3, true, false, false>, args);
+    case 4: return std::apply(launch_kcm<LibTile, 3, 3, true, false, true>, args);
+    case 5: return std::apply(launch_kcm<LibTile, 3, 3, true, false, true, false>, args);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// What the persistent instance on this library's tile for these arguments
+// takes on this card (persistent_info: shared memory a block, blocks an
+// SM, registers, local bytes into info[0..3]): kernel 0 conv_pass_kcm with
+// a rom_len ROM stack, 1 conv_pass_recurse by (method, nbits)'s policy at
+// the chunk (-1: its own). A shape without a persistent instance is
+// refused. The stream is not used.
+extern "C" int conv_pass_info(int kernel, int kh, int kw, int rom_len, int method, int nbits,
+                              int chunk, int* info, cudaStream_t) {
+  if (info == nullptr || !kcm_persistent_shape(kh, kw) || (kernel != 0 && kernel != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto shape = [&](auto khc, auto kwc) -> int {
+    constexpr int KH = decltype(khc)::value, KW = decltype(kwc)::value;
+    const size_t win = KcmWindow<LibTile>(KH, KW).elems() * sizeof(int32_t);
+    if (kernel == 0) {
+      const size_t rom = static_cast<size_t>(KH) * KW * rom_len * sizeof(int32_t);
+      return rom <= kSmemRomBytes
+                 ? persistent_info<LibTile>(
+                       conv_pass_kcm_kernel<LibTile, KH, KW, true, false, true, true>,
+                       2 * win + rom, info)
+                 : persistent_info<LibTile>(
+                       conv_pass_kcm_kernel<LibTile, KH, KW, false, false, true, true>,
+                       2 * win, info);
+    }
+    return method_taps(method, nbits, [&](auto tag) {
+      using Taps = typename decltype(tag)::type;
+      return with_chunk<Taps, kChunkSwept<KH, KW, Taps>>(chunk, [&](auto ctag) {
+        return persistent_info<LibTile>(
+            conv_pass_recurse_tiles_kernel<LibTile, KH, KW, typename decltype(ctag)::type>,
+            2 * win, info);
+      });
+    });
+  };
+  using I1 = std::integral_constant<int, 1>;
+  using I3 = std::integral_constant<int, 3>;
+  using I5 = std::integral_constant<int, 5>;
+  if (kh == 3 && kw == 3) return shape(I3{}, I3{});
+  if (kh == 5 && kw == 5) return shape(I5{}, I5{});
+  if (kh == 1 && kw == 3) return shape(I1{}, I3{});
+  if (kh == 3 && kw == 1) return shape(I3{}, I1{});
+  if (kh == 1 && kw == 5) return shape(I1{}, I5{});
+  return shape(I5{}, I1{});
 }
 
 // taps: host (kh*kw) int32 coefficient table; plan: host (kh*kw,
@@ -407,15 +478,21 @@ extern "C" int conv_pass_kcm_variant(const int32_t* x, const int32_t* rom, int r
 // compiled for (repro_torch.filters.conv.kernel_route says which); with
 // none the tiled kernel of the first design, for any shape. method:
 // repro::Method; num_ecc is read by the tiled kMitchellEcc only (the plan
-// holds the stages).
+// holds the stages). chunk: the persistent kernel's rows a thread holds at
+// once (Taps::kChunk), -1 for the policy's own, another of 0, 4, 8, 16 only
+// where kChunkSwept. tile_rows x tile_cols: this library's tile with a plan,
+// kTileH x kTileW without.
 extern "C" int conv_pass_recurse(const int32_t* x, const int32_t* taps, const int32_t* plan,
                                  int method, int num_ecc, int nbits, int32_t* out, int n,
-                                 int h, int w, int kh, int kw, int shift, int post,
-                                 cudaStream_t stream) {
+                                 int h, int w, int kh, int kw, int shift, int post, int chunk,
+                                 int tile_rows, int tile_cols, cudaStream_t stream) {
   if (kh < 1 || kw < 1 || kh > kMaxK || kw > kMaxK || n < 1 || h < 1 || w < 1 || nbits < 1 ||
       nbits > 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (plan != nullptr ? !is_lib_tile(tile_rows, tile_cols)
+                      : (tile_rows != kTileH || tile_cols != kTileW || chunk != -1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const RecursePass a{x, taps, plan, method, num_ecc, nbits, out, n, h, w, kh, kw,
-                      shift, post, stream};
+                      shift, post, chunk, stream};
   return plan == nullptr ? recurse_tiled(a) : recurse_persistent(a);
 }

@@ -606,6 +606,36 @@ int method_taps(int method, int nbits, F&& f) {
   }
 }
 
+// A tap policy with its kChunk replaced by C: the chunk menu the tuner
+// sweeps (repro_torch.tuning.autotune), the same products at any chunk.
+template <class Taps, int C>
+struct Chunked : Taps {
+  static constexpr int kChunk = C;
+};
+
+// f(Tag<Taps>{}) for chunk -1 (the policy's own) or Taps::kChunk; where
+// kSwept, f(Tag<Chunked<Taps, C>>{}) for any other C of 0, 4, 8 and 16;
+// any other chunk is refused.
+template <class Taps, bool kSwept, class F>
+int with_chunk(int chunk, F&& f) {
+  if (chunk == -1 || chunk == Taps::kChunk) return f(Tag<Taps>{});
+  if constexpr (kSwept) {
+    if constexpr (Taps::kChunk != 0) {
+      if (chunk == 0) return f(Tag<Chunked<Taps, 0>>{});
+    }
+    if constexpr (Taps::kChunk != 4) {
+      if (chunk == 4) return f(Tag<Chunked<Taps, 4>>{});
+    }
+    if constexpr (Taps::kChunk != 8) {
+      if (chunk == 8) return f(Tag<Chunked<Taps, 8>>{});
+    }
+    if constexpr (Taps::kChunk != 16) {
+      if (chunk == 16) return f(Tag<Chunked<Taps, 16>>{});
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace repro
 
 // Message for a cudaError_t returned by one of this library's entry points.

@@ -1,11 +1,11 @@
 // Window staging of the persistent conv kernels (conv_pass.cu,
-// fused_separable.cu): a persistent grid walks over 64 x 32 output tiles; a
-// tile's input window, with its halo and zeros outside the image (the
+// fused_separable.cu): a persistent grid walks over output tiles of a
+// TileShape (W columns x 2R rows); a tile's input window, with its halo and zeros outside the image (the
 // reference's zero padding), is copied with cp.async into one of two shared
 // buffers while the block computes the tile before it: 16-byte copies from
 // a 4-aligned column where the rows allow it (W % 4 == 0), else 4-byte
-// copies, with no divide per element. A block has two groups of 64 threads;
-// a thread owns kKcmRows output rows of one column.
+// copies, with no divide per element. A block has two groups of W threads;
+// a thread owns R output rows of one column.
 #pragma once
 
 #include <algorithm>
@@ -17,21 +17,44 @@
 
 namespace repro {
 
-constexpr int kKcmTileW = 64;
-constexpr int kKcmRows = 16;                         // output rows a thread
-constexpr int kKcmGroups = 2;                        // threads per column
-constexpr int kKcmTileH = kKcmRows * kKcmGroups;
-constexpr int kKcmThreads = kKcmTileW * kKcmGroups;
+// The output tile of one block of a persistent kernel, a template
+// parameter of all four: R output rows a thread, W columns, kGroups threads
+// a column, so W * kGroups threads compute kHeight = R * kGroups rows.
+template <int R, int W>
+struct TileShape {
+  static constexpr int kRows = R, kWidth = W, kGroups = 2;
+  static constexpr int kHeight = R * kGroups, kThreads = W * kGroups;
+};
 
-// Window of a tile: rows from y0 - kh/2, `cols` (a multiple of 4) columns
-// from x0 - pad_l, pad_l = kw/2 rounded up to 4 so that the window starts
-// 16-byte aligned when the rows do.
+// The tile a library is compiled for: repro_torch.kernels.build compiles
+// conv_pass.cu and fused_separable.cu once per tile of the persistent menu
+// (repro_torch.tuning.blocks.TILE_MENU), each into its own library, with
+// -DREPRO_TILE_ROWS and -DREPRO_TILE_COLS; the default is the first tile.
+#ifndef REPRO_TILE_ROWS
+#define REPRO_TILE_ROWS 32
+#endif
+#ifndef REPRO_TILE_COLS
+#define REPRO_TILE_COLS 64
+#endif
+using LibTile = TileShape<REPRO_TILE_ROWS / 2, REPRO_TILE_COLS>;
+static_assert(LibTile::kHeight == REPRO_TILE_ROWS && LibTile::kWidth % 32 == 0,
+              "a tile is an even number of rows and whole warps wide");
+
+// Whether (rows, cols), as a C entry takes them, is this library's tile.
+inline bool is_lib_tile(int rows, int cols) {
+  return rows == LibTile::kHeight && cols == LibTile::kWidth;
+}
+
+// Window of a TS tile: rows from y0 - kh/2, `cols` (a multiple of 4)
+// columns from x0 - pad_l, pad_l = kw/2 rounded up to 4 so that the window
+// starts 16-byte aligned when the rows do.
+template <class TS>
 struct KcmWindow {
   int pad_l, cols, rows;
   __host__ __device__ KcmWindow(int kh, int kw)
       : pad_l((kw / 2 + 3) & ~3),
-        cols((((kw / 2 + 3) & ~3) + kKcmTileW + kw - 1 - kw / 2 + 3) & ~3),
-        rows(kKcmTileH + kh - 1) {}
+        cols((((kw / 2 + 3) & ~3) + TS::kWidth + kw - 1 - kw / 2 + 3) & ~3),
+        rows(TS::kHeight + kh - 1) {}
   __host__ __device__ int elems() const { return rows * cols; }
 };
 
@@ -78,26 +101,26 @@ __device__ __forceinline__ void issue_window(int32_t* win, const int32_t* __rest
   }
 }
 
-// Walk this block over its tiles of the (n, h, w) batch x for a KH x KW tap
-// shape: `tile(win, img, y0, x0)` computes and stores the tile whose window
+// Walk this block over its TS tiles of the (n, h, w) batch x for a KH x KW
+// tap shape: `tile(win, img, y0, x0)` computes and stores the tile whose window
 // is `win` (every thread calls it; it may synchronise the block). kAsync:
 // the windows live in smem[0, 2 * window elems), the next tile's copied
 // with cp.async while this one computes; else (a measurement variant) each
 // tile stages its window into smem[0, window elems) with stage_window.
-template <int KH, int KW, bool kAsync = true, class Tile>
+template <class TS, int KH, int KW, bool kAsync = true, class Tile>
 __device__ __forceinline__ void persistent_tiles(const int32_t* __restrict__ x, int n, int h,
                                                  int w, int vec, int32_t* smem, Tile&& tile) {
-  const KcmWindow ws(KH, KW);
+  const KcmWindow<TS> ws(KH, KW);
   const int win_elems = ws.elems();
   const size_t plane = static_cast<size_t>(h) * w;
-  const int tiles_x = (w + kKcmTileW - 1) / kKcmTileW;
-  const int tiles_y = (h + kKcmTileH - 1) / kKcmTileH;
+  const int tiles_x = (w + TS::kWidth - 1) / TS::kWidth;
+  const int tiles_y = (h + TS::kHeight - 1) / TS::kHeight;
   const long long tiles = static_cast<long long>(n) * tiles_x * tiles_y;
   const long long stride = gridDim.x;
   auto origin = [&](long long t, int& img, int& y0, int& x0) {
-    x0 = static_cast<int>(t % tiles_x) * kKcmTileW;
+    x0 = static_cast<int>(t % tiles_x) * TS::kWidth;
     const long long rest = t / tiles_x;
-    y0 = static_cast<int>(rest % tiles_y) * kKcmTileH;
+    y0 = static_cast<int>(rest % tiles_y) * TS::kHeight;
     img = static_cast<int>(rest / tiles_y);
   };
   long long t = blockIdx.x;
@@ -147,13 +170,13 @@ __device__ __forceinline__ void store_rows(int32_t* __restrict__ img_out, const 
   }
 }
 
-// Blocks of `kernel` that one SM holds at once at `smem` bytes of dynamic
-// shared memory, and the SMs of the current device. The limit is raised to
+// Blocks of `kernel` (of `threads` threads) that one SM holds at once at
+// `smem` bytes of dynamic shared memory, and the SMs of the current device. The limit is raised to
 // the largest size asked for (never lowered: an instance may run at several
 // sizes) and the counts are cached per kernel, device and size: the
 // queries cost more host time than a small launch.
 template <class Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t smem, int& per_sm, int& sms) {
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int& per_sm, int& sms) {
   static std::mutex mu;
   static std::map<std::tuple<const void*, int, size_t>, std::pair<int, int>> resident;
   static std::map<std::pair<const void*, int>, size_t> limit;
@@ -174,7 +197,7 @@ cudaError_t resident_blocks(Kernel kernel, size_t smem, int& per_sm, int& sms) {
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, key, kKcmThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, key, threads, smem);
     if (err == cudaSuccess && count < 1) err = cudaErrorInvalidConfiguration;
     if (err != cudaSuccess) return err;
     it = resident.emplace(std::make_tuple(key, dev, smem), std::make_pair(count, sm_count)).first;
@@ -184,19 +207,35 @@ cudaError_t resident_blocks(Kernel kernel, size_t smem, int& per_sm, int& sms) {
   return cudaSuccess;
 }
 
-// Launch a persistent kernel with `kernel_args` over the tiles of an (n, h,
-// w) batch: as many blocks as the SMs hold at once at this shared-memory
-// size, at most one a tile.
-template <class Kernel, class... Args>
+// What a persistent instance takes on this card at `smem` bytes of dynamic
+// shared memory: info[0] those bytes, info[1] the blocks an SM holds at
+// once, info[2] registers a thread, info[3] local (spill) bytes a thread.
+template <class TS, class Kernel>
+int persistent_info(Kernel kernel, size_t smem, int* info) {
+  int per_sm = 0, sms = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = resident_blocks(kernel, TS::kThreads, smem, per_sm, sms);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  info[0] = static_cast<int>(smem);
+  info[1] = per_sm;
+  info[2] = attr.numRegs;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
+}
+
+// Launch a persistent kernel with `kernel_args` over the TS tiles of an
+// (n, h, w) batch: as many blocks as the SMs hold at once at this
+// shared-memory size, at most one a tile.
+template <class TS, class Kernel, class... Args>
 int launch_persistent(Kernel kernel, size_t smem, cudaStream_t stream, int n, int h, int w,
                       Args... kernel_args) {
   int per_sm = 0, sms = 0;
-  const cudaError_t err = resident_blocks(kernel, smem, per_sm, sms);
+  const cudaError_t err = resident_blocks(kernel, TS::kThreads, smem, per_sm, sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = static_cast<long long>(n) * ((w + kKcmTileW - 1) / kKcmTileW) *
-                          ((h + kKcmTileH - 1) / kKcmTileH);
+  const long long tiles = static_cast<long long>(n) * ((w + TS::kWidth - 1) / TS::kWidth) *
+                          ((h + TS::kHeight - 1) / TS::kHeight);
   const int blocks = static_cast<int>(std::min<long long>(tiles, 1ll * per_sm * sms));
-  kernel<<<blocks, dim3(kKcmTileW, kKcmGroups), smem, stream>>>(kernel_args...);
+  kernel<<<blocks, dim3(TS::kWidth, TS::kGroups), smem, stream>>>(kernel_args...);
   return static_cast<int>(cudaGetLastError());
 }
 

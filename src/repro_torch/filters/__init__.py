@@ -25,6 +25,7 @@ from repro_torch.filters.pipeline import (
     apply_filter,
     apply_filter_batch,
     filter_bank_apply,
+    resolve_filter_blocks,
     resolve_filter_plan,
 )
 
@@ -32,5 +33,5 @@ __all__ = [
     "EXEC_MODES", "FILTER_BANK", "FILTER_NAMES", "METHODS", "MULT_IMPLS",
     "FilterSpec", "apply_filter", "apply_filter_batch", "conv2d_pass",
     "filter_bank_apply", "fused_separable_pass", "gaussian_kernel_1d",
-    "get_filter", "resolve_filter_plan", "tap_multiplier",
+    "get_filter", "resolve_filter_blocks", "resolve_filter_plan", "tap_multiplier",
 ]

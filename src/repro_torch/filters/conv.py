@@ -36,9 +36,21 @@ as the reference's fused kernel does.
 
 A kernel wrapper launches its kernel for a CUDA tensor, and raises if the
 launch fails; it runs the plain version only for a CPU tensor. Each launch
-adds one to `LAUNCHES[<kernel name>]`. The reference's TPU grid arguments
-(block_rows, block_cols, batch_fold) have no counterpart: each kernel's
-tile shape is a constant of its source.
+adds one to `LAUNCHES[<kernel name>]` and to `ROUTE_LAUNCHES[(name, route,
+tile)]`.
+
+The grid arguments of the reference's passes (block_rows, block_cols,
+batch_fold) choose the tile on the card: the persistent kernels are
+compiled for every tile of a menu (`repro_torch.tuning.blocks.TILE_MENU`,
+one library a tile), and `conv2d_pass` / `fused_separable_pass` resolve
+unset fields through the tuning cache (`resolve_blocks`: explicit, then
+cached, then the route's first tile). An explicit tile off the menu raises
+ValueError and `batch_fold=True` NotImplementedError on the card. On the
+CPU the fields are the reference's vocabulary, checked as the reference
+checks an explicit `block_cols`; the plain versions ignore them, since
+the bytes never depend on the tile. The recurse wrappers also take
+`chunk`, the rows a thread of the persistent kernel holds at once, which
+the tuner sweeps (`chunk_menu`).
 """
 from __future__ import annotations
 
@@ -61,7 +73,17 @@ from repro_torch.core.kcm import (
 from repro_torch.core.mitchell import MAX_NBITS, wrap_int32
 from repro_torch.core.refmlm import SUPPORTED_WIDTHS
 from repro_torch.filters.recurse_plan import plan_words, recurse_plan
-from repro_torch.kernels.build import launch
+from repro_torch.kernels.build import launch, library_name
+from repro_torch.tuning.blocks import (
+    FUSED_PERSISTENT_SHAPES,
+    PERSISTENT_SHAPES,
+    TILE_MENU,
+    kernel_route,
+    menu_tile,
+    min_block_cols,
+    route_of,
+)
+from repro_torch.tuning.cache import resolve_blocks
 
 MULT_IMPLS = ("recurse", "kcm", "auto")
 POSTS = ("none", "clip", "abs")              # index = the kernels' post code
@@ -75,17 +97,21 @@ _METHOD_CODES = {"exact": 0, "refmlm": 1, "refmlm_nc": 2, "mitchell": 3,
 # temporaries (64 int64 planes per pixel for 16-bit REFMLM).
 _PLAIN_CHUNK_PIXELS = 1 << 22
 
-# Tap shapes the persistent kernels are compiled for (the bank's); any other
-# shape runs the tiled kernels (`conv_pass_kcm`'s C entry makes the same
-# choice itself). The recurse and fused kcm C entries run the persistent
-# kernel when they are given a plan (a column prefix) and the tiled one when
-# they are not, so for them this rule (`kernel_route`) is the only copy.
-PERSISTENT_SHAPES = ((3, 3), (5, 5), (1, 3), (3, 1), (1, 5), (5, 1))
-FUSED_PERSISTENT_SHAPES = ((3, 3), (5, 5))
-# Output tile (rows, cols) of one block of each route: the persistent
-# kernels' kKcmTileH x kKcmTileW (csrc/staging.cuh), the tiled kernels'
-# kTileH x kTileW (conv_pass.cu, fused_separable.cu).
-ROUTE_TILES = {"persistent": (32, 64), "tiled": (_TILE_H, 32)}
+# Tap shapes the persistent kernels are compiled for (the bank's,
+# PERSISTENT_SHAPES and FUSED_PERSISTENT_SHAPES); any other shape runs the
+# tiled kernels. `kernel_route` is the rule: the recurse and fused kcm C
+# entries run the persistent kernel when they are given a plan (a column
+# prefix) and the tiled one when they are not, and every C entry refuses a
+# tile that is not its route's.
+# Output tiles (rows, cols) of one block of each route, the menu the wrappers
+# choose from: the persistent kernels' TileShapes (csrc/staging.cuh), the
+# tiled kernels' kTileH x kTileW (conv_pass.cu, fused_separable.cu).
+ROUTE_TILES = TILE_MENU
+# Rows a thread of a persistent recurse kernel holds at once (its tap
+# policy's kChunk), the menu the tuner sweeps: compiled for REFMLM's 8-bit
+# policy at 3x3 direct taps and for its 8-bit rows with 16-bit columns in the
+# fused kernel (`chunk_menu`); elsewhere each policy's own.
+CHUNKS = (0, 4, 8, 16)
 
 # The fused kcm kernel's column-ROM prefix (`column_prefix`): its length is
 # rounded up to PREFIX_GRANULE entries, so the launcher's occupancy cache
@@ -93,14 +119,15 @@ ROUTE_TILES = {"persistent": (32, 64), "tiled": (_TILE_H, 32)}
 # operand past the prefix is gathered from global memory.
 PREFIX_GRANULE = 256
 PREFIX_MAX_BYTES = 96 * 1024
-# Kernels whose route (`kernel_route`) the wrappers pick.
-ROUTED = ("conv_pass_recurse", "fused_separable_recurse", "fused_separable_kcm")
+# Kernels whose route (`kernel_route`) and tile the wrappers pick: all four.
+ROUTED = KERNELS
 
 #: kernel name -> number of launches since the last `reset_launches()`.
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
-#: (kernel name, 'persistent' | 'tiled') -> launches of that route, for ROUTED.
-ROUTE_LAUNCHES: dict[tuple[str, str], int] = {
-    (name, route): 0 for name in ROUTED for route in ("persistent", "tiled")}
+#: (kernel name, route, (rows, cols)) -> launches of that route and tile.
+ROUTE_LAUNCHES: dict[tuple[str, str, tuple[int, int]], int] = {
+    (name, route, tile): 0 for name in ROUTED
+    for route, tiles in TILE_MENU.items() for tile in tiles}
 
 
 def reset_launches() -> None:
@@ -241,30 +268,65 @@ def fused_separable_recurse_plain(x: torch.Tensor, row: np.ndarray,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {    # the entry points' argument types, the stream aside
-    "conv_pass_kcm": ("conv_pass", (_P, _P, _I, _I, _I, _P) + (_I,) * 7),
-    "conv_pass_recurse": ("conv_pass", (_P, _P, _P, _I, _I, _I, _P) + (_I,) * 7),
+    "conv_pass_kcm": ("conv_pass", (_P, _P, _I, _I, _I, _P) + (_I,) * 9),
+    "conv_pass_recurse": ("conv_pass", (_P, _P, _P, _I, _I, _I, _P) + (_I,) * 10),
     "fused_separable_kcm": ("fused_separable",
-                            (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P) + (_I,) * 7),
+                            (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P) + (_I,) * 9),
     "fused_separable_recurse": ("fused_separable",
-                                (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P) + (_I,) * 7),
+                                (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P) + (_I,) * 10),
 }
 
 
-def _launch(name: str, x: torch.Tensor, args_for,
-            route: str | None = None) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, args_for, route: str,
+            tile: tuple[int, int]) -> torch.Tensor:
     """Launch kernel `name` on the current stream of x's device with the C
-    arguments (x, *args_for(out), stream), `out` allocated here; raise if
-    the launch failed. An empty batch launches nothing. `route`: the
-    kernel_route the wrapper picked, for the ROUTED kernels."""
+    arguments (x, *args_for(out), *tile, stream), `out` allocated here, from
+    the library of `tile` (`build.library_name`); raise if the launch
+    failed. An empty batch launches nothing. `route`, `tile`: the
+    kernel_route and menu tile the wrapper picked."""
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    library, argtypes = _SIGNATURES[name]
-    launch(library, name, argtypes, x.device, x.data_ptr(), *args_for(out))
+    source, argtypes = _SIGNATURES[name]
+    library = library_name(source, tile if route == "persistent" else None)
+    launch(library, name, argtypes, x.device, x.data_ptr(), *args_for(out), *tile)
     LAUNCHES[name] += 1
-    if route is not None:
-        ROUTE_LAUNCHES[(name, route)] += 1
+    ROUTE_LAUNCHES[(name, route, tile)] += 1
     return out
+
+
+def _tile(route: str, tile: tuple[int, int] | None) -> tuple[int, int]:
+    """The menu tile a kernel wrapper launches: `tile`, checked against the
+    route's menu, or the route's first."""
+    if tile is None:
+        return TILE_MENU[route][0]
+    return menu_tile(route, int(tile[0]), int(tile[1]), False)
+
+
+def chunk_menu(kernel: str, method: str, nbits: int, kh: int, kw: int,
+               nbits2: int | None = None) -> tuple[int, ...]:
+    """The chunks a recurse kernel is compiled for at these arguments on
+    the persistent route: CHUNKS for REFMLM's 8-bit policy (nbits 3-8)
+    at 3x3 direct taps, and in the fused kernel for 8-bit rows with columns
+    past 8 bits; () elsewhere, where only the policy's own runs."""
+    family, _ = parse_method(method)
+    table8 = family in ("refmlm", "refmlm_nc") and 2 < nbits <= 8
+    if kernel == "conv_pass_recurse":
+        swept = table8 and (kh, kw) == (3, 3)
+    else:
+        swept = table8 and nbits2 is not None and nbits2 > 8 \
+            and kernel_route(kh, kw, fused=True) == "persistent"
+    return CHUNKS if swept else ()
+
+
+def _chunk(chunk: int | None, menu: tuple[int, ...]) -> int:
+    """The C entry's chunk argument: -1 (the policy's own) for None."""
+    if chunk is None:
+        return -1
+    if int(chunk) not in menu:
+        raise ValueError(f"chunk={chunk} is not compiled for these arguments; "
+                         f"the menu is {menu or '(the policy default only)'}")
+    return int(chunk)
 
 
 def _host_ints(values: np.ndarray) -> ctypes.Array:
@@ -318,28 +380,23 @@ def _check_method_width(method: str, nbits: int) -> tuple[int, int]:
 
 
 def conv_pass_kcm(x: torch.Tensor, rom: RomStack, kh: int, kw: int, *,
-                  shift: int, post: str) -> torch.Tensor:
-    """Direct pass from a (kh*kw, 2**nbits) ROM stack (`rom_stack`)."""
+                  shift: int, post: str,
+                  tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """Direct pass from a (kh*kw, 2**nbits) ROM stack (`rom_stack`), on
+    `tile` of its route's menu (None: the first)."""
     _check_x(x)
     _check_post(post)
     if rom.table.shape[0] != kh * kw:
         raise ValueError(f"ROM stack has {rom.table.shape[0]} rows for {kh}x{kw} taps")
+    route = kernel_route(kh, kw)
+    tile = _tile(route, tile)
     if x.device.type == "cpu":
         return conv_pass_kcm_plain(x, rom, kh, kw, shift=shift, post=post)
     _check_cuda(x, kh, kw, rom)
     n, h, w = x.shape
     return _launch("conv_pass_kcm", x, lambda out: (
         rom.table.data_ptr(), rom.table.shape[1], rom.fill, rom.carry_bits,
-        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)))
-
-
-def kernel_route(kh: int, kw: int, *, fused: bool = False) -> str:
-    """Which kernel runs a (kh, kw) tap shape of a recurse pass or of the
-    fused kcm pass: 'persistent' for the shapes it is compiled for
-    (PERSISTENT_SHAPES for the direct pass, FUSED_PERSISTENT_SHAPES for the
-    fused ones), 'tiled' for any other."""
-    shapes = FUSED_PERSISTENT_SHAPES if fused else PERSISTENT_SHAPES
-    return "persistent" if (kh, kw) in shapes else "tiled"
+        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)), route, tile)
 
 
 def _plan_ptr(method: str, taps, nbits: int, route: str) -> int | None:
@@ -351,71 +408,87 @@ def _plan_ptr(method: str, taps, nbits: int, route: str) -> int | None:
 
 
 def conv_pass_recurse(x: torch.Tensor, taps: np.ndarray, *, method: str,
-                      nbits: int, shift: int, post: str) -> torch.Tensor:
+                      nbits: int, shift: int, post: str,
+                      tile: tuple[int, int] | None = None,
+                      chunk: int | None = None) -> torch.Tensor:
     """Direct pass with the multiplier evaluated per tap, from the host plan
-    of `taps` (`recurse_plan`) on the persistent kernel's shapes."""
+    of `taps` (`recurse_plan`) on the persistent kernel's shapes, on `tile`
+    of the route's menu, with `chunk` of `chunk_menu` (None: the policy's)."""
     _check_x(x)
     _check_post(post)
     code, num_ecc = _check_method_width(method, nbits)
+    kh, kw = taps.shape
+    route = kernel_route(kh, kw)
+    tile = _tile(route, tile)
+    menu = chunk_menu("conv_pass_recurse", method, nbits, kh, kw) \
+        if route == "persistent" else ()
+    chunk = _chunk(chunk, menu)
     if x.device.type == "cpu":
         return conv_pass_recurse_plain(x, taps, method=method, nbits=nbits,
                                        shift=shift, post=post)
-    kh, kw = taps.shape
     _check_cuda(x, kh, kw)
     n, h, w = x.shape
     coeffs = _host_ints(taps)
-    route = kernel_route(kh, kw)
     plan = _plan_ptr(method, taps, nbits, route)
     return _launch("conv_pass_recurse", x, lambda out: (
         ctypes.cast(coeffs, ctypes.c_void_p), plan, code, num_ecc, nbits,
-        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post)), route)
+        out.data_ptr(), n, h, w, kh, kw, shift, POSTS.index(post), chunk), route, tile)
 
 
 def fused_separable_kcm(x: torch.Tensor, row: RomStack, col: RomStack, *,
-                        shift: int, post: str) -> torch.Tensor:
+                        shift: int, post: str,
+                        tile: tuple[int, int] | None = None) -> torch.Tensor:
     """Fused separable pass from a (kw, 2**nbits) row ROM stack and a
-    (kh, 2**nbits2) column ROM stack (`rom_stack`); the persistent kernel
-    stages the column ROMs' `column_prefix` on the shapes it is compiled
-    for."""
+    (kh, 2**nbits2) column ROM stack (`rom_stack`), on `tile` of its
+    route's menu; the persistent kernel stages the column ROMs'
+    `column_prefix` on the shapes it is compiled for."""
     _check_x(x)
     _check_post(post)
+    kh, kw = col.table.shape[0], row.table.shape[0]
+    route = kernel_route(kh, kw, fused=True)
+    tile = _tile(route, tile)
     if x.device.type == "cpu":
         return fused_separable_kcm_plain(x, row, col, shift=shift, post=post)
-    kh, kw = col.table.shape[0], row.table.shape[0]
     _check_cuda(x, kh, kw, row, col)
     n, h, w = x.shape
-    route = kernel_route(kh, kw, fused=True)
     prefix, int16 = column_prefix(row, col) if route == "persistent" else (0, False)
     return _launch("fused_separable_kcm", x, lambda out: (
         row.table.data_ptr(), row.table.shape[1], row.fill, col.table.data_ptr(),
         col.table.shape[1], col.fill, prefix, int(int16), out.data_ptr(), n, h, w,
-        kh, kw, shift, POSTS.index(post)), route)
+        kh, kw, shift, POSTS.index(post)), route, tile)
 
 
 def fused_separable_recurse(x: torch.Tensor, row: np.ndarray, col: np.ndarray,
                             *, method: str, nbits: int, nbits2: int,
-                            shift: int, post: str) -> torch.Tensor:
+                            shift: int, post: str,
+                            tile: tuple[int, int] | None = None,
+                            chunk: int | None = None) -> torch.Tensor:
     """Fused separable pass with the multiplier evaluated per tap, from the
-    host plans of `row` and `col` on the persistent kernel's shapes."""
+    host plans of `row` and `col` on the persistent kernel's shapes, on
+    `tile` of the route's menu, with the column policy's `chunk` of
+    `chunk_menu` (None: the policy's own)."""
     _check_x(x)
     _check_post(post)
     code, num_ecc = _check_method_width(method, nbits)
     _check_method_width(method, nbits2)
+    kh, kw = col.size, row.size
+    route = kernel_route(kh, kw, fused=True)
+    tile = _tile(route, tile)
+    chunk = _chunk(chunk, chunk_menu("fused_separable_recurse", method, nbits, kh, kw,
+                                     nbits2))
     if x.device.type == "cpu":
         return fused_separable_recurse_plain(
             x, row, col, method=method, nbits=nbits, nbits2=nbits2,
             shift=shift, post=post)
-    kh, kw = col.size, row.size
     _check_cuda(x, kh, kw)
     n, h, w = x.shape
     row_c, col_c = _host_ints(row), _host_ints(col)
-    route = kernel_route(kh, kw, fused=True)
     row_plan = _plan_ptr(method, row, nbits, route)
     col_plan = _plan_ptr(method, col, nbits2, route)
     return _launch("fused_separable_recurse", x, lambda out: (
         ctypes.cast(row_c, ctypes.c_void_p), ctypes.cast(col_c, ctypes.c_void_p),
         row_plan, col_plan, code, num_ecc, nbits, nbits2, out.data_ptr(), n, h,
-        w, kh, kw, shift, POSTS.index(post)), route)
+        w, kh, kw, shift, POSTS.index(post), chunk), route, tile)
 
 
 # ------------------------------------------------------------- public passes
@@ -470,40 +543,74 @@ def _host_taps(taps) -> np.ndarray:
     return np.asarray(taps, np.int64)
 
 
+def pass_tile(x: torch.Tensor, kind: str, kh: int, kw: int, impl: str,
+              block_rows: int | None, block_cols: int | None,
+              batch_fold: bool | None) -> tuple[int, int] | None:
+    """The menu tile a pass of `kind` ('direct' | 'fused') launches on x's
+    card: the explicit grid fields, the rest through the 'cuda' cache and
+    the route's first tile (`resolve_blocks`); raises for a tile off the
+    menu or a fold. On the CPU (None) only the reference's check of an
+    explicit `block_cols` applies: the plain versions ignore the grid."""
+    n, h, w = x.shape
+    if x.device.type != "cuda":
+        bc = w if block_cols is None else min(int(block_cols), w)
+        if bc < w and bc < min_block_cols(kw):
+            raise ValueError(f"block_cols={bc} too narrow for a {kw // 2}-column halo")
+        return None
+    cfg = resolve_blocks(kind, n, h, w, kh, kw, impl, block_rows=block_rows,
+                         block_cols=block_cols, batch_fold=batch_fold,
+                         backend="cuda")
+    return menu_tile(route_of(kind, kh, kw), cfg.block_rows, cfg.block_cols,
+                     cfg.batch_fold)
+
+
 def conv2d_pass(imgs: torch.Tensor, taps, *, method: str = "refmlm",
                 nbits: int = 8, shift: int = 8, post: str = "clip",
-                mult_impl: str = "auto") -> torch.Tensor:
+                mult_impl: str = "auto", block_rows: int | None = None,
+                block_cols: int | None = None,
+                batch_fold: bool | None = None) -> torch.Tensor:
     """One batched convolution pass: (N, H, W) int32 -> (N, H, W) int32 on
     the input's device. Input may be signed (the separable intermediate);
-    `nbits` must cover the widest |operand| of each tap product."""
+    `nbits` must cover the widest |operand| of each tap product. The grid
+    fields pick the card's tile (`pass_tile`); the bytes never depend on
+    them."""
     x = _as_batch(imgs)
     taps = _host_taps(taps)
     if taps.ndim != 2:
         raise ValueError(f"taps must be (kh, kw), got shape {taps.shape}")
     kh, kw = taps.shape
-    if _resolve_mult_impl(mult_impl) == "kcm":
+    impl = _resolve_mult_impl(mult_impl)
+    tile = pass_tile(x, "direct", kh, kw, impl, block_rows, block_cols, batch_fold)
+    if impl == "kcm":
         rom = rom_stack(method, taps, nbits, x.device)
-        return conv_pass_kcm(x, rom, kh, kw, shift=shift, post=post)
+        return conv_pass_kcm(x, rom, kh, kw, shift=shift, post=post, tile=tile)
     return conv_pass_recurse(x, taps, method=method, nbits=nbits, shift=shift,
-                             post=post)
+                             post=post, tile=tile)
 
 
 def fused_separable_pass(imgs: torch.Tensor, row, col, *,
                          method: str = "refmlm", nbits: int = 8,
                          nbits2: int = 16, shift: int = 8, post: str = "clip",
-                         mult_impl: str = "auto") -> torch.Tensor:
+                         mult_impl: str = "auto", block_rows: int | None = None,
+                         block_cols: int | None = None,
+                         batch_fold: bool | None = None) -> torch.Tensor:
     """Both separable passes in one kernel: `row` is the (kw,) horizontal
     filter at width `nbits`, `col` the (kh,) vertical filter at `nbits2`
     (see `second_pass_nbits`). Bit-identical to `conv2d_pass(row,
-    post='none')` followed by `conv2d_pass(col)`."""
+    post='none')` followed by `conv2d_pass(col)`. The grid fields pick the
+    card's tile (`pass_tile`)."""
     x = _as_batch(imgs)
     row, col = _host_taps(row).reshape(-1), _host_taps(col).reshape(-1)
-    if _resolve_mult_impl(mult_impl) == "kcm":
+    impl = _resolve_mult_impl(mult_impl)
+    tile = pass_tile(x, "fused", col.size, row.size, impl, block_rows, block_cols,
+                     batch_fold)
+    if impl == "kcm":
         return fused_separable_kcm(
             x, rom_stack(method, row, nbits, x.device),
-            rom_stack(method, col, nbits2, x.device), shift=shift, post=post)
+            rom_stack(method, col, nbits2, x.device), shift=shift, post=post,
+            tile=tile)
     return fused_separable_recurse(x, row, col, method=method, nbits=nbits,
-                                   nbits2=nbits2, shift=shift, post=post)
+                                   nbits2=nbits2, shift=shift, post=post, tile=tile)
 
 
 def second_pass_nbits(intermediate_max: int, coeff_max: int) -> int:
@@ -519,9 +626,10 @@ def second_pass_nbits(intermediate_max: int, coeff_max: int) -> int:
 
 
 __all__ = [
-    "FUSED_PERSISTENT_SHAPES", "KERNELS", "LAUNCHES", "METHODS", "MULT_IMPLS",
-    "PERSISTENT_SHAPES", "POSTS", "PREFIX_GRANULE", "PREFIX_MAX_BYTES", "ROUTED",
-    "ROUTE_LAUNCHES", "ROUTE_TILES", "RomStack", "apply_post", "column_prefix",
+    "CHUNKS", "FUSED_PERSISTENT_SHAPES", "KERNELS", "LAUNCHES", "METHODS",
+    "MULT_IMPLS", "PERSISTENT_SHAPES", "POSTS", "PREFIX_GRANULE",
+    "PREFIX_MAX_BYTES", "ROUTED", "ROUTE_LAUNCHES", "ROUTE_TILES", "RomStack",
+    "apply_post", "chunk_menu", "column_prefix", "pass_tile",
     "conv2d_pass", "conv_pass_kcm", "conv_pass_kcm_plain", "conv_pass_recurse",
     "conv_pass_recurse_plain", "fused_separable_kcm",
     "fused_separable_kcm_plain", "fused_separable_pass",

@@ -9,8 +9,16 @@ Counterpart of `repro.filters.pipeline`:
 Accepts a single (H, W) image, an (N, H, W) batch, or NHWC with a trailing
 unit channel, as numpy arrays or torch tensors, and returns uint8 tensors
 on the device it ran on: the CUDA card by default, the CPU only when
-`device="cpu"` is asked for. Only `exec='local'` is ported; the reference's
-'sharded' and 'streamed' modes raise `NotImplementedError`.
+`device="cpu"` is asked for.
+
+The execution plan -- dataflow, tap-product implementation and the tile
+-- resolves through the per-backend plan cache (`repro_torch.tuning`):
+explicit arguments win, then a tuned plan for this (filter, n, h, w), then
+the reference's cache-miss plan. Execution modes: `exec='local'` runs on
+one device; `exec='sharded'` splits the batch over a (batch, rows) grid of
+devices with halo'd row bands and `exec='streamed'` walks an out-of-core
+source in overlapping tiles (`repro_torch.distribute`). Every plan and
+mode gives the same bytes.
 """
 from __future__ import annotations
 
@@ -25,14 +33,19 @@ from repro_torch.filters.bank import (
     max_intermediate,
 )
 from repro_torch.filters.conv import (
-    ROUTE_TILES,
     _resolve_mult_impl,
     conv2d_pass,
     fused_separable_pass,
-    kernel_route,
     second_pass_nbits,
 )
-from repro_torch.tuning.plans import PlanConfig, PlanTile, resolve_plan
+from repro_torch.tuning.blocks import TILE_MENU, BlockConfig, kernel_route
+from repro_torch.tuning.cache import backend_key, resolve_blocks_cached
+from repro_torch.tuning.plans import (
+    PlanConfig,
+    PlanTile,
+    allowed_dataflows,
+    resolve_plan,
+)
 
 EXEC_MODES = ("local", "sharded", "streamed")
 
@@ -62,91 +75,194 @@ def _restore(out: torch.Tensor, orig: tuple[int, ...]) -> torch.Tensor:
 
 def _apply(x: torch.Tensor, spec: FilterSpec, method: str, nbits: int,
            plan: PlanConfig) -> torch.Tensor:
+    blocks = dict(mult_impl=plan.mult_impl, block_rows=plan.block_rows,
+                  block_cols=plan.block_cols, batch_fold=plan.batch_fold)
     if plan.dataflow == "direct":
         out = conv2d_pass(x, spec.taps, method=method, nbits=nbits,
-                          shift=spec.shift, post=spec.post,
-                          mult_impl=plan.mult_impl)
+                          shift=spec.shift, post=spec.post, **blocks)
         return out.to(torch.uint8)
     nb2 = second_pass_nbits(max_intermediate(spec),
                             int(np.abs(spec.sep_col).max()))
     if plan.dataflow == "fused":
         out = fused_separable_pass(x, spec.sep_row, spec.sep_col,
                                    method=method, nbits=nbits, nbits2=nb2,
-                                   shift=spec.shift, post=spec.post,
-                                   mult_impl=plan.mult_impl)
+                                   shift=spec.shift, post=spec.post, **blocks)
     else:
         tmp = conv2d_pass(x, spec.sep_row[None, :], method=method, nbits=nbits,
-                          shift=0, post="none", mult_impl=plan.mult_impl)
+                          shift=0, post="none", **blocks)
         out = conv2d_pass(tmp, spec.sep_col[:, None], method=method, nbits=nb2,
-                          shift=spec.shift, post=spec.post,
-                          mult_impl=plan.mult_impl)
+                          shift=spec.shift, post=spec.post, **blocks)
     return out.to(torch.uint8)
 
 
 def apply_filter(imgs, filt: FilterSpec | str, *, method: str = "refmlm",
                  nbits: int = 8, separable: bool | None = None,
                  fused: bool | None = None, mult_impl: str = "auto",
-                 exec: str = "local",
-                 device: str | torch.device | None = None) -> torch.Tensor:
+                 block_rows: int | None = None, block_cols: int | None = None,
+                 batch_fold: bool | None = None, exec: str = "local",
+                 devices=None, mesh_shape: tuple[int, int] | None = None,
+                 halo: str = "exchange", tile: tuple[int, int] | None = None,
+                 tile_batch: int = 8, out=None, journal=None,
+                 resume: bool = False,
+                 device: str | torch.device | None = None):
     """Run one bank filter over an image batch through the selected
-    multiplier; -> uint8 tensor of the input's layout on `device`.
+    multiplier.
 
     `separable=False` forces the direct KxK window; `separable=True` admits
     only the two 1-D pass dataflows, of which `fused=True` runs both passes
     in one kernel and `fused=False` the two-kernel dataflow with its int32
     intermediate. `mult_impl` pins the tap products ('kcm' | 'recurse' |
-    'auto'). Every plan gives the same bytes for exact multipliers, and
-    for every multiplier across mult_impl."""
+    'auto'). `block_rows` / `block_cols` / `batch_fold` pin the grid: on the
+    card a tile of the kernels' menu (`repro_torch.tuning.blocks`; another
+    raises), on the CPU the reference's vocabulary. Unset, all of these
+    resolve through the plan cache of the device's backend for this
+    (n, h, w). Every plan gives the same bytes for exact multipliers, and
+    for every multiplier across mult_impl and the grid.
+
+    `exec`: 'local' (default) runs on `device` and returns a uint8 tensor
+    of the input's layout there; 'sharded' runs over a (batch, rows) grid of
+    devices of `device`'s type (`devices` / `mesh_shape` size it, `halo`
+    picks 'exchange' or 'embedded' row halos) and returns the same tensor;
+    'streamed' walks the source in overlapping `tile`-shaped batches of
+    `tile_batch`, each run locally on `device`, and returns a NumPy uint8
+    array (writing into `out` -- an ndarray or memmap -- when given;
+    `journal` / `resume` are the crash-resume surface). All three modes
+    give the same bytes."""
     if exec not in EXEC_MODES:
         raise ValueError(f"exec must be one of {EXEC_MODES}, got {exec!r}")
-    if exec != "local":
-        raise NotImplementedError(
-            f"exec={exec!r} is not ported yet (ROADMAP Queue 1 item 8, "
-            "`distribute`); use exec='local'")
+    filter_kw = dict(method=method, nbits=nbits, separable=separable,
+                     fused=fused, mult_impl=mult_impl, block_rows=block_rows,
+                     block_cols=block_cols, batch_fold=batch_fold)
+    if exec == "sharded":
+        from repro_torch.distribute.sharded import sharded_apply_filter
+        if (tile is not None or out is not None or tile_batch != 8
+                or journal is not None or resume):
+            raise ValueError("tile/tile_batch/out/journal/resume are "
+                             "streamed-mode arguments")
+        return sharded_apply_filter(imgs, filt, devices=devices,
+                                    mesh_shape=mesh_shape, halo=halo,
+                                    device=device, **filter_kw)
+    if exec == "streamed":
+        from repro_torch.distribute.streamed import stream_filter
+        if devices is not None or mesh_shape is not None or halo != "exchange":
+            raise ValueError("devices/mesh_shape/halo are sharded-mode "
+                             "arguments")
+        src = imgs.cpu().numpy() if isinstance(imgs, torch.Tensor) else imgs
+        return stream_filter(src, filt,
+                             tile=tile if tile is not None else (256, 256),
+                             tile_batch=tile_batch, out=out, journal=journal,
+                             resume=resume, device=device, **filter_kw)
+    if ((devices, mesh_shape, tile, out, journal) != (None,) * 5
+            or halo != "exchange" or tile_batch != 8 or resume):
+        raise ValueError("devices/mesh_shape/halo/tile/tile_batch/out/"
+                         "journal/resume require exec='sharded' or "
+                         "exec='streamed'")
     spec = get_filter(filt) if isinstance(filt, str) else filt
     if separable and not spec.separable:
         raise ValueError(f"filter {spec.name!r} has no separable decomposition")
     if fused and (separable is False or not spec.separable):
         raise ValueError("fused=True requires the separable dataflow")
     x, orig = _normalize(imgs, resolve_device(device))
-    plan = resolve_filter_plan(spec, mult_impl=mult_impl, separable=separable,
-                               fused=fused)
+    n, h, w = x.shape
+    kh, kw = spec.ksize
+    plan = resolve_plan(spec.name, n, h, w, kh, kw,
+                        separable_ok=spec.separable, mult_impl=mult_impl,
+                        separable=separable, fused=fused,
+                        block_rows=block_rows, block_cols=block_cols,
+                        batch_fold=batch_fold, backend=x.device.type)
+    plan = plan._replace(mult_impl=_resolve_mult_impl(plan.mult_impl))
     return _restore(_apply(x, spec, method, nbits, plan), orig)
+
+
+def _pass_kind(spec: FilterSpec, dataflow: str) -> tuple[str, int, int]:
+    """(kind, kh, kw) of the pass whose block entry sizes a plan's grid: the
+    fused pass, the direct pass, or the two-pass column pass (which carries
+    the row halo), as the reference picks it."""
+    if dataflow == "fused":
+        return "fused", len(spec.sep_col), len(spec.sep_row)
+    if dataflow == "two_pass":
+        return "direct", len(spec.sep_col), 1
+    return ("direct", *spec.ksize)
+
+
+def _backend(device, backend: str | None) -> str:
+    return backend or backend_key(device)
+
+
+def resolve_filter_blocks(filt: FilterSpec | str, n: int, h: int, w: int, *,
+                          method: str = "refmlm", mult_impl: str = "auto",
+                          separable: bool | None = None,
+                          fused: bool | None = None,
+                          device: str | torch.device | None = None,
+                          backend: str | None = None) -> BlockConfig:
+    """The grid `apply_filter`'s pass resolves for an (n, h, w) batch of
+    `filt` on `backend` (default: `device`'s): dataflow kind, tap extents
+    and resolved mult_impl included, one `resolve_blocks` consult. The
+    serving layer's per-bucket memo hook; `block_cols` is in the cache's
+    vocabulary (None is full width on the CPU)."""
+    spec = get_filter(filt) if isinstance(filt, str) else filt
+    separable = spec.separable if separable is None else separable
+    fused = separable if fused is None else fused
+    dataflow = "fused" if fused and separable else "direct"
+    kind, kh, kw = _pass_kind(spec, dataflow)
+    return resolve_blocks_cached(kind, n, h, w, kh, kw,
+                                 _resolve_mult_impl(mult_impl),
+                                 _backend(device, backend))
 
 
 def resolve_filter_plan(filt: FilterSpec | str, n: int | None = None,
                         h: int | None = None, w: int | None = None, *,
                         method: str = "refmlm", mult_impl: str = "auto",
                         separable: bool | None = None,
-                        fused: bool | None = None) -> PlanConfig:
-    """The concrete plan `apply_filter` runs for an (n, h, w) batch of
-    `filt`: dataflow and the resolved tap-product implementation. The
-    signature is the reference's, the serving layer's per-bucket memo
-    hook. The port's plan depends on neither the shape nor `method`: with
-    no plan cache the default is the reference's cache-miss plan, and the
-    tile each plan launches is fixed by its kernel route (`plan_tile`)."""
+                        fused: bool | None = None,
+                        device: str | torch.device | None = None,
+                        backend: str | None = None) -> PlanConfig:
+    """The fully concrete plan `apply_filter` runs for an (n, h, w) batch of
+    `filt` on `backend` (default: `device`'s; the card's for None): the
+    dataflow, the resolved mult_impl and the grid, one plan-cache consult.
+    Fields the plan defers are concretized through the block cache of the
+    matching pass (a full-width CPU tile pins as `block_cols=w`). The
+    serving layer's per-bucket memo hook. With no shape, only the dataflow
+    and mult_impl resolve (the cache is keyed on the shape): the grid stays
+    None."""
     spec = get_filter(filt) if isinstance(filt, str) else filt
     for dim in (n, h, w):
         if dim is not None and int(dim) < 1:
             raise ValueError(f"batch and image sizes must be positive, got "
                              f"{(n, h, w)}")
-    plan = resolve_plan(separable_ok=spec.separable, mult_impl=mult_impl,
-                        separable=separable, fused=fused)
-    return plan._replace(mult_impl=_resolve_mult_impl(plan.mult_impl))
+    if None in (n, h, w):
+        return PlanConfig(allowed_dataflows(spec.separable, separable, fused)[0],
+                          _resolve_mult_impl(mult_impl))
+    backend = _backend(device, backend)
+    plan = resolve_plan(spec.name, n, h, w, *spec.ksize,
+                        separable_ok=spec.separable, mult_impl=mult_impl,
+                        separable=separable, fused=fused, backend=backend)
+    impl = _resolve_mult_impl(plan.mult_impl)
+    if None in (plan.block_rows, plan.block_cols, plan.batch_fold):
+        kind, kh, kw = _pass_kind(spec, plan.dataflow)
+        base = resolve_blocks_cached(kind, n, h, w, kh, kw, impl, backend)
+        return PlanConfig(
+            plan.dataflow, impl,
+            base.block_rows if plan.block_rows is None else plan.block_rows,
+            (plan.block_cols if plan.block_cols is not None
+             else w if base.block_cols is None else base.block_cols),
+            base.batch_fold if plan.batch_fold is None else plan.batch_fold)
+    return plan._replace(mult_impl=impl)
 
 
 def plan_tile(filt: FilterSpec | str, plan: PlanConfig) -> PlanTile:
-    """The tile `plan` launches for `filt`: the route (`conv.kernel_route`)
-    of its last pass -- the fused kernel, the direct pass, or the two-pass
-    column pass -- and that route's block (`conv.ROUTE_TILES`)."""
+    """The tile `plan` launches for `filt` on the card: the route
+    (`kernel_route`) of its last pass -- the fused kernel, the direct pass,
+    or the two-pass column pass -- and the plan's grid where it is a tile
+    of that route's menu, else the route's first tile (a CPU-vocabulary
+    grid, or none)."""
     spec = get_filter(filt) if isinstance(filt, str) else filt
-    if plan.dataflow == "fused":
-        route = kernel_route(len(spec.sep_col), len(spec.sep_row), fused=True)
-    elif plan.dataflow == "two_pass":
-        route = kernel_route(len(spec.sep_col), 1)
-    else:
-        route = kernel_route(*spec.ksize)
-    return PlanTile(route, *ROUTE_TILES[route])
+    _, kh, kw = _pass_kind(spec, plan.dataflow)
+    route = kernel_route(kh, kw, fused=plan.dataflow == "fused")
+    tile = (plan.block_rows, plan.block_cols)
+    if tile not in TILE_MENU[route]:
+        tile = TILE_MENU[route][0]
+    return PlanTile(route, *tile)
 
 
 def apply_filter_batch(imgs: list, filt: FilterSpec | str, *,
@@ -181,4 +297,5 @@ def filter_bank_apply(imgs, filters: tuple[str, ...] | None = None, *,
 
 
 __all__ = ["EXEC_MODES", "apply_filter", "apply_filter_batch",
-           "filter_bank_apply", "plan_tile", "resolve_filter_plan"]
+           "filter_bank_apply", "plan_tile", "resolve_filter_blocks",
+           "resolve_filter_plan"]

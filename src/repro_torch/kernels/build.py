@@ -7,6 +7,12 @@ library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o lib<name>.so <name>.cu
 
+The two conv sources compile once per tile of the persistent kernels' menu
+(`repro_torch.tuning.blocks.TILE_MENU`), each into a library of its own,
+`lib<name>_<rows>x<cols>.so` built with `-DREPRO_TILE_ROWS=<rows>
+-DREPRO_TILE_COLS=<cols>` (csrc/staging.cuh's `LibTile`), so every menu
+tile adds a library that builds in parallel, not time to one build.
+
 into `build/repro_torch/<digest>/` at the repository root (listed in
 `.gitignore`), where `<digest>` hashes the sources and the flags, so a
 changed source rebuilds and an unchanged one is reused. The build happens
@@ -28,13 +34,36 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.tuning.blocks import TILE_MENU
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 SOURCES = ("conv_pass", "fused_separable", "karatsuba_matmul", "karatsuba_matmul_i8",
            "mitchell_matmul")
+#: sources built once per persistent tile of the menu
+TILED_SOURCES = ("conv_pass", "fused_separable")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def library_name(source: str, tile: tuple[int, int] | None = None) -> str:
+    """The library of `source` built for persistent `tile` (None: the
+    menu's first, which also holds the tiled kernels every library has);
+    the source's own name for the sources without a tile."""
+    if source not in TILED_SOURCES:
+        return source
+    rows, cols = TILE_MENU["persistent"][0] if tile is None else tile
+    return f"{source}_{rows}x{cols}"
+
+
+#: library name -> (source, extra nvcc flags)
+LIBRARIES: dict[str, tuple[str, tuple[str, ...]]] = {
+    **{library_name(src, tile): (src, (f"-DREPRO_TILE_ROWS={tile[0]}",
+                                       f"-DREPRO_TILE_COLS={tile[1]}"))
+       for src in TILED_SOURCES for tile in TILE_MENU["persistent"]},
+    **{src: (src, ()) for src in SOURCES if src not in TILED_SOURCES},
+}
 
 
 def find_nvcc() -> str:
@@ -50,8 +79,9 @@ def find_nvcc() -> str:
 
 
 def source_digest() -> str:
-    """Hash of every file in csrc/ and of the nvcc flags."""
+    """Hash of every file in csrc/, of the nvcc flags and of the libraries."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(LIBRARIES.items())).encode())
     for path in sorted(CSRC.iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -65,13 +95,14 @@ def build() -> dict[str, Path]:
     nvcc = find_nvcc()
     out_dir = BUILD_ROOT / source_digest()
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    libs = {name: out_dir / f"lib{name}.so" for name in LIBRARIES}
     jobs = []
     for name, lib in libs.items():
         if lib.exists():
             continue
+        source, flags = LIBRARIES[name]
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{source}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, proc, tmp, lib))
@@ -91,9 +122,11 @@ def build() -> dict[str, Path]:
 
 @lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library `lib<name>.so`, building it first if needed."""
-    if name not in SOURCES:
-        raise ValueError(f"unknown kernel library {name!r}; have {SOURCES}")
+    """The built library `lib<name>.so`, building it first if needed; a
+    tiled source's name is its first tile's library."""
+    name = library_name(name) if name in TILED_SOURCES else name
+    if name not in LIBRARIES:
+        raise ValueError(f"unknown kernel library {name!r}; have {tuple(LIBRARIES)}")
     return ctypes.CDLL(str(build()[name]))
 
 
@@ -127,5 +160,6 @@ def launch(library: str, name: str, argtypes: tuple, device: torch.device,
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-__all__ = ["BUILD_ROOT", "CSRC", "DEFAULT_CUDA_HOME", "NVCC_FLAGS", "SOURCES", "build",
-           "find_nvcc", "launch", "load_library", "source_digest"]
+__all__ = ["BUILD_ROOT", "CSRC", "DEFAULT_CUDA_HOME", "LIBRARIES", "NVCC_FLAGS", "SOURCES",
+           "TILED_SOURCES", "build", "find_nvcc", "launch", "library_name", "load_library",
+           "source_digest"]

@@ -29,8 +29,10 @@ raises (the reference falls back to its TPU terms):
     dispatch, deliberately low, so the drift table
     (`repro_torch.obs.profile`) reads how far a dispatch runs over them.
 
-The tile is the plan's route tile (`repro_torch.filters.pipeline.
-plan_tile`): 32x64 persistent or 16x32 tiled blocks, never a folded batch.
+The tile is the one the plan launches on the card (`repro_torch.filters.
+pipeline.plan_tile`): a tile of its route's menu (`repro_torch.tuning.
+blocks.TILE_MENU`: 32x64 or 16x64 persistent, 16x32 tiled), never a folded
+batch; the autotune CLI sorts its plan candidates by this bound.
 """
 from __future__ import annotations
 

@@ -22,9 +22,11 @@ the chaos tests replay exact schedules:
 
 Probe sites: SITE_EXECUTE = "serve.execute", one per `BatchExecutor`
 dispatch (key `serve_key|exec=<mode>`, seqs the batch's request sequence
-numbers: the poison target). SITE_SHARD and SITE_TILE name the reference's
-`distribute` sites, which the port does not run yet (ROADMAP Queue 1 item
-8). `probe` raises `InjectedFault`; every firing is recorded in
+numbers: the poison target); SITE_SHARD = "distribute.shard", one per
+participating shard of a sharded call (`repro_torch.distribute.sharded`,
+key `<pass>/<halo>/dev<id>`, index the shard); SITE_TILE = "stream.tile",
+one per planned tile of a streamed run (`repro_torch.distribute.streamed`,
+key `img<i>:r<r0>c<c0>`, index the tile's work index). `probe` raises `InjectedFault`; every firing is recorded in
 `injector.events` so tests can assert the schedule actually happened.
 """
 from __future__ import annotations

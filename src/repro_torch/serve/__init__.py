@@ -28,8 +28,9 @@ Layers:
         fut = srv.submit(img, "gaussian5", method="refmlm")    # for the CPU
         out = fut.result()   # CPU uint8 == apply_filter(img, ...).cpu()
 
-Not ported: the elastic executor pool (`repro.serve.pool`) and the
-scale-out exec modes, refused with `NotImplementedError` (ROADMAP Queue 1
+Buckets of the scale-out exec modes ('sharded', 'streamed') dispatch
+through `repro_torch.distribute`. Not ported: the elastic executor pool
+(`repro.serve.pool`), refused with `NotImplementedError` (ROADMAP Queue 1
 item 8).
 """
 from __future__ import annotations

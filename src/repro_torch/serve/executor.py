@@ -38,11 +38,10 @@ Failure handling (DESIGN.md §12), as the reference's:
     bytes. Counted in `retries` / `isolated`. This isolates host-side and
     injected faults; a sticky CUDA error poisons the context for every
     later dispatch and is out of its scope.
-  * **per-bucket degraded fallback** -- kept from the reference for a
-    scale-out bucket that fails `degrade_after` consecutive dispatches.
-    The port serves `exec='local'` only: the server refuses 'sharded' and
-    'streamed' before admission, and `run()` fails such a batch without a
-    dispatch (ROADMAP Queue 1 item 8), so no bucket reaches the fallback.
+  * **per-bucket degraded fallback** -- a scale-out bucket ('sharded' over
+    `devices`, 'streamed' in `tile` tiles, `repro_torch.distribute`) that
+    fails `degrade_after` consecutive dispatches is pinned to the
+    bit-identical local path and counted in `degraded`.
   * **leak-proof fulfilment** -- `run()` never raises and fulfils every
     future exactly once.
 
@@ -62,6 +61,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
+from typing import Sequence
 
 import torch
 
@@ -76,8 +76,8 @@ from repro_torch.serve.request import FilterRequest, bucket_key, serve_key
 from repro_torch.serve.workload import Workload, resolve_workloads
 from repro_torch.tuning.cache import backend_key, cache_generation
 
-#: the reference's scale-out exec modes (§9); not ported (ROADMAP Queue 1
-#: item 8), so the server refuses them before admission
+#: the scale-out exec modes (`repro_torch.distribute`), which the degraded
+#: ladder falls back from
 SCALE_OUT_MODES = ("sharded", "streamed")
 
 
@@ -89,7 +89,10 @@ class BatchExecutor:
     """Stateless-per-request executor with the per-bucket plan memo."""
 
     def __init__(self, *, device: str | torch.device | None = None,
-                 pad_pow2: bool = True, degrade_after: int = 2,
+                 pad_pow2: bool = True,
+                 devices: int | Sequence[int] | None = None,
+                 tile: tuple[int, int] = (256, 256),
+                 tile_batch: int = 8, degrade_after: int = 2,
                  plan_memo_max: int = 256, name: str = "",
                  workloads: dict[str, Workload] | None = None,
                  metrics: MetricsRegistry | None = None,
@@ -103,6 +106,10 @@ class BatchExecutor:
         self.backend = backend_key(self.device)
         self.workloads = resolve_workloads(workloads)
         self.pad_pow2 = pad_pow2
+        self.devices = (tuple(devices) if isinstance(devices, (list, tuple))
+                        else devices)
+        self.tile = tuple(tile)
+        self.tile_batch = int(tile_batch)
         self.degrade_after = max(int(degrade_after), 1)
         self.plan_memo_max = max(int(plan_memo_max), 1)
         self.name = str(name)
@@ -165,9 +172,10 @@ class BatchExecutor:
     def _plan(self, filt: str, method: str, mult_impl: str, n: int, h: int,
               w: int) -> dict:
         """Explicit plan fields for a local-exec (n, h, w) dispatch of
-        `filt`: the dataflow and resolved mult_impl, resolved once per
-        (bucket, traced batch size) and pinned on every later call, plus
-        the route tile they launch (for the plan tag). The memo follows the
+        `filt`: the dataflow, the resolved mult_impl and the tile it
+        launches on the card (`plan_tile`, the plan's menu tile there),
+        resolved once per (bucket, traced batch size) through the
+        executor's backend and pinned on every later call. The memo follows the
         tuning cache's generation, so an `invalidate_cache()` drops stale
         pinned plans, and is LRU-bounded at `plan_memo_max` entries so
         long-tail shape traffic cannot grow it without limit."""
@@ -184,7 +192,7 @@ class BatchExecutor:
                 return plan
             self._c_plan_misses.inc(member=self.name)
         cfg = resolve_filter_plan(filt, n, h, w, method=method,
-                                  mult_impl=mult_impl)
+                                  mult_impl=mult_impl, backend=self.backend)
         tile = plan_tile(filt, cfg)
         plan = {"separable": cfg.dataflow != "direct",
                 "fused": cfg.dataflow == "fused",
@@ -203,16 +211,28 @@ class BatchExecutor:
 
     def _exec_kw(self, exec_mode: str, filt: str, method: str,
                  mult_impl: str, n: int, h: int, w: int) -> dict:
-        """`apply_filter` kwargs of one dispatch: the memoised plan's
-        dataflow and resolved mult_impl. Only exec='local' is ported; any
-        other mode raises (`apply_filter` would too)."""
-        if exec_mode != "local":
-            raise NotImplementedError(
-                f"exec={exec_mode!r} is not ported yet (ROADMAP Queue 1 item "
-                "8, `distribute`); use exec='local'")
-        p = self._plan(filt, method, mult_impl, n, h, w)
-        return {"separable": p["separable"], "fused": p["fused"],
-                "mult_impl": p["mult_impl"]}
+        """`apply_filter` kwargs of one dispatch. Local: the memoised
+        plan's dataflow and resolved mult_impl, and on the card its tile,
+        which makes the call fully explicit (the CPU's plain versions take
+        no tile). Scale-out modes forward the request's mult_impl with the
+        executor's `devices`, or its `tile` (never larger than the image)
+        and `tile_batch`."""
+        if exec_mode == "local":
+            p = self._plan(filt, method, mult_impl, n, h, w)
+            kw = {"separable": p["separable"], "fused": p["fused"],
+                  "mult_impl": p["mult_impl"]}
+            if self.backend == "cuda":
+                kw.update(block_rows=p["block_rows"],
+                          block_cols=p["block_cols"], batch_fold=False)
+            return kw
+        if exec_mode == "sharded":
+            return {"exec": "sharded", "devices": self.devices,
+                    "mult_impl": mult_impl}
+        if exec_mode == "streamed":
+            th, tw = min(self.tile[0], h), min(self.tile[1], w)
+            return {"exec": "streamed", "tile": (th, tw),
+                    "tile_batch": self.tile_batch, "mult_impl": mult_impl}
+        raise ValueError(f"unknown exec mode {exec_mode!r}")
 
     def _plan_tag(self, mode: str, r0: FilterRequest, traced_n: int) -> str:
         """Compact spelling of the dispatch's plan for the §15 trace/drift
@@ -337,14 +357,8 @@ class BatchExecutor:
         """Execute and fulfil -- every future resolves exactly once, to its
         own request's output or to its own (isolated) failure. Never
         raises: any error escaping the isolation machinery itself lands on
-        the still-unresolved futures, so none can hang (§12). A batch of a
-        scale-out mode fails whole without a dispatch: the port has no
-        such mode, and the degraded ladder must not serve it locally."""
+        the still-unresolved futures, so none can hang (§12)."""
         try:
-            if batch.requests and batch.requests[0].exec in SCALE_OUT_MODES:
-                raise NotImplementedError(
-                    f"exec={batch.requests[0].exec!r} is not ported yet "
-                    "(ROADMAP Queue 1 item 8, `distribute`)")
             self._fulfil(batch.key, batch.requests)
         except BaseException as err:                       # noqa: BLE001
             for req in batch.requests:

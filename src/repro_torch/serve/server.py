@@ -38,12 +38,14 @@ to the degraded state. Bisection isolates host-side and injected faults
 a device-side assert) poisons the CUDA context for every later dispatch
 and is out of its scope.
 
+Execution modes, as the reference's: a request's `exec` (or
+`ServerConfig.exec`) routes its bucket through `exec='local'`, 'sharded'
+(over `ServerConfig.devices` of the server's device type) or 'streamed'
+(in `ServerConfig.tile` tiles, `tile_batch` a call); the degraded-exec
+ladder serves a scale-out bucket that keeps failing on the local path.
 Not ported, and refused rather than quietly served another way: the
-scale-out modes `exec='sharded'|'streamed'` (at `submit()`, before
-admission, and in `ServerConfig.exec`) and the elastic executor pool
-(`ServerConfig.pool`), both `NotImplementedError` naming ROADMAP Queue 1
-item 8. A refused request never reaches a dispatch, so the degraded-exec
-ladder cannot turn it into a local one.
+elastic executor pool (`ServerConfig.pool`), `NotImplementedError` naming
+ROADMAP Queue 1 item 8.
 
 Observability (DESIGN.md §15), as the reference's: one metrics registry
 read under one lock by `stats()`, tracing (`trace=`: None, True, a JSONL
@@ -56,6 +58,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+from typing import Sequence
 from typing import Callable
 
 import torch
@@ -74,7 +77,7 @@ from repro_torch.serve.admission import (
 )
 from repro_torch.serve.batcher import MicroBatch, ShapeBucketedBatcher
 from repro_torch.serve.controller import AdaptiveBatchController
-from repro_torch.serve.executor import SCALE_OUT_MODES, BatchExecutor, next_pow2
+from repro_torch.serve.executor import BatchExecutor, next_pow2
 from repro_torch.serve.request import (
     PRIORITIES,
     DeadlineExceeded,
@@ -82,13 +85,6 @@ from repro_torch.serve.request import (
     FilterRequest,
 )
 from repro_torch.serve.workload import Workload, resolve_workloads
-
-
-def _refuse_scale_out(exec_mode: str) -> None:
-    if exec_mode in SCALE_OUT_MODES:
-        raise NotImplementedError(
-            f"exec={exec_mode!r} is not ported yet (ROADMAP Queue 1 item 8, "
-            "`distribute`); the port serves exec='local'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +97,11 @@ class ServerConfig:
     max_pending: int = 256          # admission gate: in-flight weight bound
     admission_timeout_s: float = 10.0
     pad_pow2: bool = True           # round traced batch up to a power of two
-    exec: str = "local"             # execution mode; only 'local' is ported
+    exec: str = "local"             # default execution mode
     device: str | torch.device | None = None   # None = the CUDA card
+    devices: int | Sequence[int] | None = None  # sharded-exec mesh
+    tile: tuple[int, int] = (256, 256)   # streamed-exec tile shape
+    tile_batch: int = 8
     # ------------------------------- fault tolerance (DESIGN.md §12)
     default_deadline_ms: float | None = None  # per-request shed deadline
     fail_fast_degraded: bool = False    # degraded server refuses admission
@@ -135,7 +134,6 @@ class ImageFilterServer:
         if self.config.exec not in EXEC_MODES:
             raise ValueError(f"exec must be one of {EXEC_MODES}, got "
                              f"{self.config.exec!r}")
-        _refuse_scale_out(self.config.exec)
         if self.config.pool is not None:
             raise NotImplementedError(
                 "ServerConfig.pool (the elastic executor pool, "
@@ -171,6 +169,8 @@ class ImageFilterServer:
             metrics=self.metrics)
         self._executor = BatchExecutor(
             device=device, pad_pow2=self.config.pad_pow2,
+            devices=self.config.devices, tile=self.config.tile,
+            tile_batch=self.config.tile_batch,
             degrade_after=self.config.degrade_after,
             plan_memo_max=self.config.plan_memo_max,
             workloads=self._workloads, metrics=self.metrics,
@@ -245,7 +245,6 @@ class ImageFilterServer:
         if exec_mode not in EXEC_MODES:
             raise ValueError(f"exec must be one of {EXEC_MODES}, got "
                              f"{exec_mode!r}")
-        _refuse_scale_out(exec_mode)
         if priority not in PRIORITIES:
             raise ValueError(f"priority must be one of {PRIORITIES}, got "
                              f"{priority!r}")
@@ -316,7 +315,8 @@ class ImageFilterServer:
         from repro_torch.serve.warmup import sweep
         execs = (self.config.exec,) if execs is None else tuple(execs)
         for em in execs:
-            _refuse_scale_out(em)
+            if em not in EXEC_MODES:
+                raise ValueError(f"exec must be one of {EXEC_MODES}, got {em!r}")
         return sweep(self._executor, shapes, filters, methods, mult_impls,
                      execs, batches, nbits=nbits, priorities=priorities,
                      workload=workload)

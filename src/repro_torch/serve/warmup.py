@@ -74,7 +74,7 @@ def main(argv=None) -> int:
     ap.add_argument("--methods", default="refmlm")
     ap.add_argument("--mult-impls", default="auto")
     ap.add_argument("--execs", default="local",
-                    help="comma-separated exec modes (only 'local' is ported)")
+                    help="comma-separated exec modes (local, sharded, streamed)")
     ap.add_argument("--batches", default="1,8",
                     help="comma-separated traced batch sizes")
     ap.add_argument("--device", default=None,

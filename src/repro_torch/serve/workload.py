@@ -72,11 +72,10 @@ class Workload:
 _NARROW = (np.uint8, np.int8, np.uint16, np.int16, np.int32)
 
 
-def _device_batch(imgs: list[np.ndarray], traced_n: int,
-                  device: torch.device) -> torch.Tensor:
-    """(traced_n, H, W) batch on `device`: the images, then zero images.
-    It crosses to the device in the images' own dtype when they share a
-    narrow integer one (a uint8 frame moves a quarter of int32's bytes);
+def _host_batch(imgs: list[np.ndarray], traced_n: int) -> torch.Tensor:
+    """(traced_n, H, W) batch in host memory: the images, then zero
+    images, in the images' own dtype when they share a narrow integer one
+    (a uint8 frame crosses to the device in a quarter of int32's bytes);
     `apply_filter` widens it to int32 there, as the reference casts."""
     dtype = imgs[0].dtype
     if dtype not in _NARROW or any(im.dtype != dtype for im in imgs):
@@ -84,7 +83,7 @@ def _device_batch(imgs: list[np.ndarray], traced_n: int,
     batch = np.zeros((traced_n, *imgs[0].shape), dtype)
     for i, im in enumerate(imgs):
         batch[i] = im
-    return torch.from_numpy(batch).to(device)
+    return torch.from_numpy(batch)
 
 
 class FilterWorkload(Workload):
@@ -113,11 +112,17 @@ class FilterWorkload(Workload):
              method: str, mult_impl: str, exec_mode: str, nbits: int,
              traced_n: int) -> torch.Tensor:
         """One `apply_filter` over the padded batch -> the first len(imgs)
-        outputs, copied to host memory (the dispatch's one sync)."""
+        outputs in host memory: copied back at the end (the dispatch's one
+        sync), or, streamed, assembled there tile batch by tile batch."""
         h, w = imgs[0].shape
         kw = executor._exec_kw(exec_mode, target, method, mult_impl,
                                traced_n, h, w)
-        out = apply_filter(_device_batch(imgs, traced_n, executor.device),
+        if exec_mode == "streamed":
+            batch = _host_batch(imgs, traced_n)
+            out = apply_filter(batch, target, method=method, nbits=nbits,
+                               device=executor.device, **kw)
+            return torch.from_numpy(out[:len(imgs)])
+        out = apply_filter(_host_batch(imgs, traced_n).to(executor.device),
                            target, method=method, nbits=nbits,
                            device=executor.device, **kw)
         return out[:len(imgs)].cpu()
@@ -140,23 +145,23 @@ class FilterWorkload(Workload):
 
     def model_bound(self, req: FilterRequest, n: int, *,
                     backend: str | None = None) -> float | None:
-        """Roofline lower bound of the bucket's resolved plan on its
-        route's tile."""
+        """Roofline lower bound of the bucket's plan, resolved for
+        `backend` (the card's for None), on the tile it launches there."""
         from repro_torch.filters.pipeline import plan_tile, resolve_filter_plan
         from repro_torch.roofline.conv_model import plan_cost
         from repro_torch.tuning.cache import backend_key
         h, w = req.img.shape
         spec = get_filter(req.filt)
+        backend = backend or backend_key()
         plan = resolve_filter_plan(spec, n, h, w, method=req.method,
-                                   mult_impl=req.mult_impl)
+                                   mult_impl=req.mult_impl, backend=backend)
         tile = plan_tile(spec, plan)
         kh, kw = ((len(spec.sep_col), len(spec.sep_row))
                   if plan.dataflow == "fused" else spec.ksize)
         cost = plan_cost(plan.dataflow, plan.mult_impl, n, h, w, kh, kw,
                          block_rows=tile.block_rows,
                          block_cols=tile.block_cols,
-                         batch_fold=tile.batch_fold,
-                         backend=backend or backend_key())
+                         batch_fold=tile.batch_fold, backend=backend)
         return cost.lower_bound_s
 
 

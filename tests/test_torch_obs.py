@@ -35,7 +35,8 @@ from repro_torch.filters import FILTER_NAMES, apply_filter, get_filter
 from repro_torch.filters.pipeline import plan_tile, resolve_filter_plan
 from repro_torch.obs.snapshot import main as port_snapshot_main
 from repro_torch.roofline import conv_model as tmodel
-from repro_torch.tuning import PlanConfig, backend_key
+from repro_torch.tuning import PlanConfig, backend_key, invalidate_cache
+from repro_torch.tuning.cache import CACHE_ENV
 
 # The suite runs in several worker processes; one torch thread each keeps
 # them from oversubscribing the cores.
@@ -225,7 +226,11 @@ def test_cost_orders_plans_and_sizes():
     assert cpu_rec.flops == 32 * kcm.flops
 
 
-def test_filter_workload_bound_prices_the_route_tile():
+def test_filter_workload_bound_prices_the_route_tile(tmp_path, monkeypatch):
+    """On the cache-miss plan (an empty tuning cache): the fused kernel on
+    the persistent route's first tile."""
+    monkeypatch.setenv(CACHE_ENV, str(tmp_path))
+    invalidate_cache()
     wl = tserve.FilterWorkload()
     req = tserve.FilterRequest(img=np.zeros((480, 640), np.int32), filt="gaussian5",
                                method="refmlm", mult_impl="auto", exec="local",
@@ -236,6 +241,7 @@ def test_filter_workload_bound_prices_the_route_tile():
                             block_cols=64, batch_fold=False, backend="cuda")
     assert bound == want.lower_bound_s
     assert wl.model_bound(req, 16, backend="cuda") > bound
+    invalidate_cache()
 
 
 # ---------------------------------------------------------- plan resolution
@@ -243,10 +249,11 @@ def test_filter_workload_bound_prices_the_route_tile():
 @pytest.mark.parametrize("filt", FILTER_NAMES)
 def test_shape_aware_plan_keeps_the_reference_defaults(filt):
     for impl in ("auto", "recurse"):
-        got = resolve_filter_plan(filt, 4, 24, 32, method="mitchell", mult_impl=impl)
+        got = resolve_filter_plan(filt, 4, 24, 32, method="mitchell", mult_impl=impl,
+                                  device="cpu")
         want = jfilters.resolve_filter_plan(filt, 4, 24, 32, method="mitchell",
                                             mult_impl=impl)
-        assert got == PlanConfig(want.dataflow, want.mult_impl)
+        assert got == PlanConfig(*want)
         tile = plan_tile(filt, got)
         assert tile == ("persistent", 32, 64, False)
         for dataflow in ("direct", "two_pass", "fused"):

@@ -160,10 +160,17 @@ def test_plan_resolution_matches_reference_defaults():
             for fused in (None, True, False):
                 assert (tplans.allowed_dataflows(sep_ok, separable, fused)
                         == jplans.allowed_dataflows(sep_ok, separable, fused))
-    assert tfilters.resolve_filter_plan("gaussian5") == ("fused", "kcm")
-    assert tfilters.resolve_filter_plan("sharpen3") == ("direct", "kcm")
+    # with no shape only the dataflow and mult_impl resolve (the grid is
+    # keyed on the shape); with one, the CPU backend's plan is the
+    # reference's cache-miss plan, grid included
+    assert tfilters.resolve_filter_plan("gaussian5") == tplans.PlanConfig("fused", "kcm")
+    assert tfilters.resolve_filter_plan("sharpen3") == tplans.PlanConfig("direct", "kcm")
     assert tfilters.resolve_filter_plan(
-        "sobel_x", fused=False, mult_impl="recurse") == ("two_pass", "recurse")
+        "sobel_x", fused=False, mult_impl="recurse") == tplans.PlanConfig("two_pass", "recurse")
+    for name, shape in (("gaussian5", (2, 40, 48)), ("sobel_x", (1, 300, 600))):
+        got = tfilters.resolve_filter_plan(name, *shape, device="cpu")
+        want = jfilters.resolve_filter_plan(name, *shape)
+        assert tuple(got) == tuple(want), name
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -192,10 +199,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_exec_modes_raise():
+    """The scale-out modes run and give the local bytes (`exec='streamed'`
+    as a NumPy array); a bad mode, or a mode's arguments under another,
+    raise."""
     img = _frames(n=1)[0]
-    for mode in ("sharded", "streamed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-            tfilters.apply_filter(img, "gaussian3", exec=mode, device="cpu")
+    want = tfilters.apply_filter(img, "gaussian3", device="cpu")
+    got = tfilters.apply_filter(img, "gaussian3", exec="sharded", devices=2, device="cpu")
+    assert torch.equal(got, want)
+    got = tfilters.apply_filter(img, "gaussian3", exec="streamed", tile=(8, 8), device="cpu")
+    np.testing.assert_array_equal(got, want.numpy())
+    with pytest.raises(ValueError, match="streamed-mode"):
+        tfilters.apply_filter(img, "gaussian3", exec="sharded", tile=(8, 8), device="cpu")
+    with pytest.raises(ValueError, match="sharded-mode"):
+        tfilters.apply_filter(img, "gaussian3", exec="streamed", devices=2, device="cpu")
     with pytest.raises(ValueError, match="exec"):
         tfilters.apply_filter(img, "gaussian3", exec="remote", device="cpu")
     with pytest.raises(ValueError, match="separable"):

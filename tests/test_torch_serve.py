@@ -10,9 +10,10 @@ calls and against the JAX package's server, on the CPU.
   * port-served bytes equal reference-served bytes (interpret mode) for
     the bank at refmlm kcm and for recurse cases;
   * serving behaviour: exactly-once delivery under concurrent mixed load,
-    poison isolation through `fault_scope`, the scale-out exec modes and
-    the pool refused before admission or at construction, the server
-    refusing to start without a card unless the CPU is asked for, warmup.
+    poison isolation through `fault_scope`, the scale-out exec modes
+    served byte-equal to the direct call (per request and as the server's
+    default), the pool refused at construction, the server refusing to
+    start without a card unless the CPU is asked for, warmup.
 
 The datapath is all integers: the tolerance is zero. The kernels run only
 on the card, where `chip_smoke.py`'s serve phase drives this server.
@@ -236,22 +237,31 @@ def test_poisoned_request_is_isolated_and_neighbours_reserved():
 
 @pytest.mark.parametrize("mode", ("sharded", "streamed"))
 def test_scale_out_request_is_refused_before_admission(mode):
-    with cpu_server() as srv:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            srv.submit(image(0), "gaussian3", exec=mode)
-        srv.submit(image(1), "gaussian3").result(60)
+    """A scale-out request is admitted and served through its mode (2
+    logical CPU shards, or 8x16 tiles), byte-equal to the direct call,
+    beside a local one; no dispatch fails, so nothing degrades."""
+    with cpu_server(devices=2, tile=(8, 16), tile_batch=3) as srv:
+        futs = [srv.submit(image(i), "gaussian3", exec=mode) for i in range(3)]
+        local = srv.submit(image(9), "gaussian3")
+        got = [f.result(60) for f in futs]
+        assert torch.equal(local.result(60), apply_filter(image(9), "gaussian3", device="cpu"))
         stats = srv.stats()
-    # the refused request took no slot, no seq and no dispatch: it can never
-    # reach the degraded ladder's local fallback
-    assert stats["submitted"] == stats["served"] == 1
-    assert stats["batches"] == 1 and stats["degraded"] == {}
-    assert stats["dispatch_failures"] == {}
+    for i, out in enumerate(got):
+        assert torch.equal(out, apply_filter(image(i), "gaussian3", device="cpu"))
+    assert stats["submitted"] == stats["served"] == 4
+    assert stats["degraded"] == {} and stats["dispatch_failures"] != {}
+    assert all(v == 0 for v in stats["dispatch_failures"].values())
 
 
 @pytest.mark.parametrize("mode", ("sharded", "streamed"))
 def test_scale_out_default_exec_is_refused_at_construction(mode):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tserve.ImageFilterServer(tserve.ServerConfig(device="cpu", exec=mode))
+    """`ServerConfig.exec` makes a scale-out mode every request's default:
+    the server starts, and serves the direct call's bytes."""
+    with cpu_server(exec=mode, devices=4, tile=(16, 16)) as srv:
+        futs = {f: srv.submit(image(3), f) for f in ("gaussian5", "sobel_x", "sharpen3")}
+        outs = {f: fut.result(60) for f, fut in futs.items()}
+    for f, out in outs.items():
+        assert torch.equal(out, apply_filter(image(3), f, device="cpu")), f"{mode} {f}"
 
 
 def test_pool_is_refused_at_construction():
@@ -260,19 +270,31 @@ def test_pool_is_refused_at_construction():
 
 
 def test_executor_never_runs_a_scale_out_dispatch_locally():
-    """Even handed to the executor directly, a scale-out batch fails
-    without a dispatch, however often it comes: the degraded ladder's
-    local fallback never serves it."""
-    ex = tserve.BatchExecutor(device="cpu", degrade_after=1)
+    """Handed to the executor directly, a healthy scale-out batch runs on
+    its own mode, however often it comes: the degraded ladder's local
+    fallback serves a bucket only after `degrade_after` failed dispatches
+    (here a shard probe that fails once, then the local path)."""
+    from repro_torch.runtime.fault import SITE_SHARD
+    ex = tserve.BatchExecutor(device="cpu", devices=2, degrade_after=1)
     for seq in range(1, 4):
         req = tserve.FilterRequest(img=image(5), filt="gaussian3", method="refmlm",
                                    mult_impl="auto", exec="sharded", nbits=8,
                                    future=tserve.FilterFuture(), submitted=0.0,
                                    seq=seq)
         ex.run(tserve.MicroBatch(req.key, (req,), "size"))
-        assert isinstance(req.future.exception(), NotImplementedError)
-    assert ex.stats()["misses"] == 0 and not ex.degraded_mode
+        assert torch.equal(req.future.result(0),
+                           apply_filter(image(5), "gaussian3", device="cpu"))
+    assert ex.stats()["misses"] == 1 and not ex.degraded_mode
     assert ex.degraded == {}
+    req = tserve.FilterRequest(img=image(6), filt="gaussian3", method="refmlm",
+                               mult_impl="auto", exec="sharded", nbits=8,
+                               future=tserve.FilterFuture(), submitted=0.0, seq=4)
+    inj = FaultInjector().at_call(SITE_SHARD, 1)
+    with fault_scope(inj):
+        ex.run(tserve.MicroBatch(req.key, (req,), "size"))
+    assert torch.equal(req.future.result(0), apply_filter(image(6), "gaussian3", device="cpu"))
+    assert ex.degraded_mode and ex.degraded == {req.key: 1}
+    assert inj.events and inj.events[0][0] == SITE_SHARD
 
 
 def test_server_needs_a_card_unless_the_cpu_is_asked_for():
