@@ -89,7 +89,27 @@ Phases, each fatal on failure:
                measured / plan_cost drift; then one streamed bucket and one
                sharded bucket (8 frames each) served byte-equal to the
                direct call, neither falling back to the local path.
- 14. times  -- each kernel with CUDA events (median after warm-up) beside
+ 14. pool   -- `ImageFilterServer(pool=((0,), (0,)), drain_after=2)`: two
+               members on this card, and a solo server, serve the same 96
+               frames of two local and two sharded buckets, byte-equal to
+               the direct call; [pool] lines: frames/s, p50 / p99 (the
+               servers' traces), routes and dispatches per member; then
+               device 0 lost to sharded work (`SITE_SHARD` `dev0`): the
+               routed member probes and is retired, the survivor serves the
+               rest byte-equal and refuses its own drain (the last member);
+ 15. lm     -- Qwen2-0.5B at full published width (24 layers, d_model 896,
+               14 / 2 heads x 64, d_ff 4864, vocab 151936, tied, bf16,
+               random weights from a seeded generator): first cut to 2
+               layers, karatsuba_int16's logits on the kernels byte-equal
+               to the plain route (`impl='reference'`), every
+               `mitchell_matmul` call's accumulators equal to
+               `mitchell_matmul_plain`'s, and mitchell's logits against the
+               float32-summing reference route (R5); then `greedy_generate`
+               at the reference CLI's traffic (batch 4, prompt 32, 32 tokens)
+               for exact, mitchell and karatsuba_int16; [lm] lines: prefill
+               ms, decode ms a token, tokens/s, launches and host syncs a
+               decode step (the CUDA sync debug mode), peak memory;
+ 16. times  -- each kernel with CUDA events (median after warm-up) beside
                its plain version, its bound and, where PyTorch has one call
                that computes the same sums, that call; the matmul kernels at
                the full-width shape; `conv_pass_kcm`'s measurement variants
@@ -103,12 +123,15 @@ Phases, each fatal on failure:
                of the first design (variant 0), on [variant] lines too;
 The line before the last is a JSON object naming the seven kernels with
 their numbers (and `serve_launches`, their launches in phase 13; for the
+matmul kernels `lm_launches`, their launches in phase 15's three
+`greedy_generate` runs; for the
 conv kernels `tile_launches`, the main path's launches by tile, and
 `tile_device_ms`, phase 9's device ms at 16x2048x2048 by tile); the last
 line is the run's result and device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1092,6 +1115,331 @@ def phase_serve(device: torch.device) -> dict[str, int]:
     return launches
 
 
+POOL_JOBS = (("gaussian3", "kcm", "local"), ("sobel_x", "recurse", "local"),
+             ("gaussian5", "kcm", "sharded"), ("sharpen3", "recurse", "sharded"))
+POOL_ROUNDS = 3                       # rounds of 8 frames per job
+POOL_LOSS_ROUNDS = 4                  # rounds of the sharded bucket under device loss
+
+
+def _span_latencies_ms(srv, since: float) -> list[float]:
+    """submit -> fulfil of every request the server's trace saw submitted
+    at or after `since` (its clock, `time.monotonic`), in ms."""
+    out = []
+    for evs in srv.trace.spans().values():
+        ev = {e["event"]: e for e in evs}
+        if "submit" in ev and "fulfil" in ev and ev["submit"]["ts"] >= since:
+            out.append((ev["fulfil"]["ts"] - ev["submit"]["ts"]) * 1e3)
+    return out
+
+
+def phase_pool(device: torch.device) -> None:
+    """The elastic executor pool on the card: `pool=((0,), (0,))`, two
+    members on device 0. The same mixed load of local and sharded buckets
+    through the pool and through a solo server, every served byte equal to
+    the direct call; then a `SITE_SHARD` `dev0` loss: the routed member of
+    the sharded bucket probes, is retired, the survivor serves the rest
+    byte-equal and, the last member, refuses its own drain."""
+    from repro_torch.filters import apply_filter
+    from repro_torch.runtime.fault import SITE_SHARD, FaultInjector, fault_scope
+    from repro_torch.serve import ImageFilterServer, ServerConfig
+    from repro_torch.serve.pool import rendezvous_score
+    from repro_torch.serve.request import bucket_key
+
+    t_phase = time.perf_counter()
+    frames = noisy_frames(8, SERVE_FRAME, 20, 500).astype(np.uint8)
+    want = {(f, impl): [apply_filter(fr, f, method="refmlm", mult_impl=impl).cpu()
+                        for fr in frames] for f, impl, _ in POOL_JOBS}
+    common = dict(max_batch=8, max_delay_ms=5.0, max_pending=4096, degrade_after=1,
+                  trace=True)
+    servers = {"solo": ImageFilterServer(ServerConfig(**common)),
+               "pool": ImageFilterServer(ServerConfig(pool=((0,), (0,)), drain_after=2,
+                                                      **common))}
+    try:
+        for srv in servers.values():
+            for filt, impl, mode in POOL_JOBS:
+                srv.warmup([SERVE_FRAME], (filt,), mult_impls=(impl,), execs=(mode,),
+                           batches=(8,))
+        runs: dict[str, list[tuple[float, float, float]]] = {"solo": [], "pool": []}
+        for name in ("solo", "pool", "pool", "solo"):       # in turns
+            srv = servers[name]
+            torch.cuda.synchronize()
+            since = time.monotonic()
+            t0 = time.perf_counter()
+            futs = [(filt, impl, j, srv.submit(frames[j], filt, method="refmlm",
+                                               mult_impl=impl, exec=mode))
+                    for _ in range(POOL_ROUNDS) for filt, impl, mode in POOL_JOBS
+                    for j in range(len(frames))]
+            for filt, impl, j, fut in futs:
+                assert torch.equal(fut.result(120), want[(filt, impl)][j]), \
+                    f"{name} served != direct: {filt} {impl} frame {j}"
+            wall = time.perf_counter() - t0
+            p50, p99 = _pcts(_span_latencies_ms(srv, since))
+            runs[name].append((len(futs) / wall, p50, p99))
+            log(f"[pool] {name}: {len(futs)} frames ({len(POOL_JOBS)} buckets, local and "
+                f"sharded) served byte-equal to the direct call in {wall:.3f} s, "
+                f"{len(futs) / wall:.1f} frames/s; p50 {p50:.4f} ms p99 {p99:.4f} ms "
+                f"(submit to fulfil, the server's trace)")
+        for name, srv in servers.items():
+            st = srv.stats()
+            assert st["served"] == st["submitted"] and st["failed"] == 0, (name, st)
+            assert st["degraded"] == {}, f"{name}: a bucket fell back to local"
+            log(f"[pool] {name}, median of {len(runs[name])} runs in turns (solo, pool, "
+                f"pool, solo): " + ", ".join(
+                    f"{label} {statistics.median(r[i] for r in runs[name]):.4f}"
+                    for i, label in enumerate(("frames/s", "p50 ms", "p99 ms"))))
+        pool = servers["pool"]
+        members = pool.stats()["pool"]["members"]
+        for m, row in members.items():
+            log(f"[pool] member {m} devices {row['devices']}: routes {row['routes']} "
+                f"dispatches {row['dispatches']} failed {row['failed']}")
+
+        # device 0 dies for sharded work: the routed member drains, the survivor serves
+        filt, impl, mode = POOL_JOBS[2]
+        key = bucket_key(filt, "refmlm", impl, mode, 8, *SERVE_FRAME)
+        target = max(members, key=lambda m: rendezvous_score(m, key))
+        survivor = next(m for m in members if m != target)
+        with fault_scope(FaultInjector().on_key(SITE_SHARD, "dev0")) as inj:
+            for r in range(POOL_LOSS_ROUNDS):
+                futs = [pool.submit(frames[j], filt, method="refmlm", mult_impl=impl,
+                                    exec=mode) for j in range(len(frames))]
+                for j, fut in enumerate(futs):
+                    assert torch.equal(fut.result(120), want[(filt, impl)][j]), \
+                        f"served under device loss != direct: round {r} frame {j}"
+        st = pool.stats()
+        rows = st["pool"]["members"]
+        log(f"[pool] dev0 lost to sharded work ({len(inj.events)} injected shard faults): "
+            f"{POOL_LOSS_ROUNDS * len(frames)} frames of {key} served byte-equal; member "
+            f"{target} {rows[target]['state']}, {survivor} {rows[survivor]['state']} "
+            f"(routes {rows[survivor]['routes']}); drains {st['pool']['drains']} rebuilds "
+            f"{st['pool']['rebuilds']} drain_refused {st['pool']['drain_refused']}; "
+            f"degraded {st['degraded']}")
+        assert rows[target]["state"] == "dead" and rows[survivor]["state"] == "active"
+        assert st["pool"]["drains"] == 1 and st["pool"]["rebuilds"] == 0
+        assert st["pool"]["drain_refused"] >= 1, "the last member was not asked to drain"
+        assert st["failed"] == 0
+    finally:
+        for srv in servers.values():
+            srv.close()
+    torch.cuda.synchronize()
+    log(f"[pool] phase {time.perf_counter() - t_phase:.1f} s (host clock)")
+
+
+LM_ARCH = "qwen2-0.5b"
+LM_TRAFFIC = (4, 32, 32)            # batch, prompt, generated tokens: the reference CLI's
+LM_METHODS = ("exact", "mitchell", "karatsuba_int16")
+LM_PARITY_LAYERS = 2
+LM_DECODE_RUNS = 5
+
+
+@contextlib.contextmanager
+def checked_mitchell(stats: dict):
+    """Every `mitchell_matmul_kernel` call inside also runs
+    `mitchell_matmul_plain` on the same operands; `stats` counts the calls
+    and keeps the largest |kernel - plain| of the int32 accumulators."""
+    from repro_torch.kernels import mitchell_matmul as mm
+    kernel = mm.mitchell_matmul_kernel
+
+    def checked(a, b, **kw):
+        out = kernel(a, b, **kw)
+        plain = mm.mitchell_matmul_plain(a, b, **kw)
+        stats["calls"] += 1
+        stats["max_err"] = max(stats["max_err"],
+                               int((out.long() - plain.long()).abs().max()))
+        return out
+
+    mm.mitchell_matmul_kernel = checked
+    try:
+        yield
+    finally:
+        mm.mitchell_matmul_kernel = kernel
+
+
+def count_syncs(fn) -> tuple[object, dict[str, int]]:
+    """fn() with the CUDA sync debug mode on: -> (its result, the
+    synchronizing CUDA operations it made, by the source line that made
+    them)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites: dict[str, int] = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return out, sites
+
+
+def device_busy_ms(fn) -> tuple[float, float, dict[str, float]] | None:
+    """(wall ms, summed CUDA kernel ms, the three kernels with the most
+    device ms) of fn() ended by a sync, under torch.profiler; None when the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
+    return (wall, busy, top) if busy > 0 else None
+
+
+def lm_steps(model, params, prompt, steps: int) -> list[torch.Tensor]:
+    """Prefill `prompt`, then `steps` greedy decode steps; -> the logits
+    of every step (the path `greedy_generate` takes, logits kept)."""
+    caches = model.init_cache(prompt.shape[0], prompt.shape[1] + steps)
+    logits, caches, clen = model.prefill(params, {"tokens": prompt}, caches)
+    outs = [logits]
+    for _ in range(steps):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        logits, caches, clen = model.decode_step(params, tok, caches, clen)
+        outs.append(logits)
+    return outs
+
+
+def phase_lm_parity(cfg, prompt: torch.Tensor, max_err: dict) -> None:
+    """The LM path at full width with the depth cut to 2 layers, prefill
+    and 2 decode steps: karatsuba_int16's logits on the kernels byte-equal
+    to the plain route's (`impl='reference'`: the plain limb products);
+    every mitchell_matmul call's accumulators equal to
+    mitchell_matmul_plain's; the mitchell logits' max |diff| against the
+    reference's float32-summing route (R5)."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    cut = dataclasses.replace(cfg, num_layers=LM_PARITY_LAYERS)
+    params = build_model(cut).init(torch.Generator(prompt.device).manual_seed(1))
+    t0 = time.perf_counter()
+    lim = dataclasses.replace(cut, matmul_method="karatsuba_int16")
+    got = lm_steps(build_model(lim), params, prompt, 2)
+    plain = lm_steps(build_model(lim, impl="reference"), params, prompt, 2)
+    for i, (g, p) in enumerate(zip(got, plain)):
+        assert torch.equal(g, p), f"karatsuba_int16 logits differ from the plain route, step {i}"
+    log(f"[lm] parity {LM_PARITY_LAYERS} layers, full width: karatsuba_int16 logits of "
+        f"prefill + 2 decode steps byte-equal to the plain route (impl='reference')")
+    lns = dataclasses.replace(cut, matmul_method="mitchell")
+    stats = {"calls": 0, "max_err": 0}
+    with checked_mitchell(stats):
+        got = lm_steps(build_model(lns), params, prompt, 2)
+    max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
+    assert stats["calls"] == 7 * LM_PARITY_LAYERS * 3 and stats["max_err"] == 0, stats
+    ref = lm_steps(build_model(lns, impl="reference"), params, prompt, 2)
+    r5 = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+    scale = max(float(r.float().abs().max()) for r in ref)
+    log(f"[lm] parity: mitchell_matmul accumulators == mitchell_matmul_plain on all "
+        f"{stats['calls']} calls (max |err| {stats['max_err']}); mitchell logits against "
+        f"the float32-summing reference route (R5, K = {cfg.d_model} and {cfg.d_ff}): max |diff| "
+        f"{r5:.6g} of max |logit| {scale:.6g}; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_lm(device: torch.device, max_err: dict) -> dict[str, int]:
+    """Qwen2-0.5B at full published width (24 layers, bf16, random weights
+    from a seeded generator): `greedy_generate` at the reference CLI's
+    traffic (batch 4, prompt 32, 32 tokens) for exact, mitchell and
+    karatsuba_int16 on the kernels; [lm] lines with prefill ms, decode ms a
+    token, tokens/s, launches and host syncs a decode step, peak memory.
+    -> the matmul kernels' launches over the three main-path runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_lib import greedy_generate
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    batch, plen, gen = LM_TRAFFIC
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, plen))).to(device)
+    phase_lm_parity(cfg, prompt, max_err)
+
+    params = build_model(cfg).init(torch.Generator(device).manual_seed(0))
+    n_params = build_model(cfg).count_params(params)
+    log(f"[lm] {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
+        f"(float32 master weights)")
+    lm_launches = dict.fromkeys(MATMUL_KERNELS, 0)
+    for method in LM_METHODS:
+        model = build_model(dataclasses.replace(cfg, matmul_method=method))
+        greedy_generate(model, params, prompt, steps=2, s_max=plen + gen)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_matmul_launches()
+        t0 = time.perf_counter()
+        tokens = greedy_generate(model, params, prompt, steps=gen, s_max=plen + gen)
+        tokens = tokens.cpu()
+        wall = time.perf_counter() - t0
+        launches = matmul_launches()
+        peak = torch.cuda.max_memory_allocated()
+        assert tokens.shape == (batch, gen) and tokens.dtype == torch.int32, tokens.shape
+        assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size
+        for name in MATMUL_KERNELS:
+            lm_launches[name] += launches[name]
+        if method == "exact":
+            assert not any(launches.values()), f"exact launched a matmul kernel: {launches}"
+        else:
+            kernel = "mitchell_matmul" if method == "mitchell" else "karatsuba_matmul_i8"
+            assert launches[kernel] > 0, f"{method}: {kernel} never launched"
+            assert launches["karatsuba_matmul"] == 0, "the wide limb kernel ran on the LM path"
+
+        # the split: prefill, then decode steps, each ended by a sync
+        caches = model.init_cache(batch, plen + gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, clen = model.prefill(params, {"tokens": prompt}, caches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        assert bool(torch.isfinite(logits).all()), f"{method}: non-finite prefill logits"
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        step_ms = []
+        for _ in range(LM_DECODE_RUNS):
+            t0 = time.perf_counter()
+            logits, caches, clen = model.decode_step(params, tok, caches, clen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        reset_matmul_launches()
+        (logits, caches, clen), sync_sites = count_syncs(
+            lambda: model.decode_step(params, tok, caches, clen))
+        syncs = sum(sync_sites.values())
+        step_launches = {k: v for k, v in matmul_launches().items() if v}
+        assert bool(torch.isfinite(logits).all()), f"{method}: non-finite decode logits"
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        try:
+            busy = device_busy_ms(lambda: model.decode_step(params, tok, caches, clen))
+        except Exception as err:                         # noqa: BLE001
+            busy = None
+            log(f"[lm] {method}: torch.profiler failed ({err!r})")
+        log(f"[lm] {method}: greedy_generate {batch}x{plen} + {gen} tokens in {wall:.4f} s "
+            f"(host clock), {batch * gen / wall:.2f} tokens/s; prefill {prefill_ms:.4f} ms; "
+            f"decode {statistics.median(step_ms):.4f} ms a token (median of "
+            f"{LM_DECODE_RUNS}); a decode step launches {step_launches or 'no matmul kernel'}"
+            f" and makes {syncs} host syncs; peak {peak / 2**30:.3f} GiB; "
+            f"main-path launches {{{', '.join(f'{k}: {v}' for k, v in launches.items())}}}; "
+            f"tokens[0][:8] {tokens[0, :8].tolist()}")
+        log(f"[lm] {method}: host syncs of a decode step by site {sync_sites}; one decode "
+            + ("step under torch.profiler: not measured (no device time seen)" if busy is None
+               else f"step under torch.profiler: wall {busy[0]:.4f} ms, CUDA kernels "
+                    f"{busy[1]:.4f} ms, device busy {busy[1] / busy[0]:.4f}; most device ms "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in busy[2].items())))
+    log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return lm_launches
+
+
 def tile_cases(shape) -> dict[str, list]:
     """The persistent conv kernels' cases of `phase_tiles` at `shape`: at the
     main-path shape every persistent tap shape of each kernel (direct 3x3 and
@@ -2035,6 +2383,8 @@ def main() -> int:
     phase_sharded(inputs)
     phase_streamed()
     serve_launches = phase_serve(device)
+    phase_pool(device)
+    lm_launches = phase_lm(device, max_err)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
@@ -2067,6 +2417,7 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
+            "lm_launches": lm_launches[name],
         })
     log(smi)                    # the card's name and power limit, again at the end
     print(json.dumps({"kernels": kernels}))

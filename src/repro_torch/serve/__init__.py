@@ -20,6 +20,9 @@ Layers:
   executor.py   -- micro-batch -> one device dispatch ending in one copy
                    to host memory, the plan memo, pow-2 batch rounding,
                    bisection;
+  pool.py       -- `ExecutorPool`, rendezvous-routed executors over
+                   explicit device subsets, probed and rebuilt or retired
+                   on device loss (`repro_torch.runtime.elastic`);
   server.py     -- `ImageFilterServer` / `ServerConfig`;
   warmup.py     -- `python -m repro_torch.serve.warmup`.
 
@@ -29,9 +32,8 @@ Layers:
         out = fut.result()   # CPU uint8 == apply_filter(img, ...).cpu()
 
 Buckets of the scale-out exec modes ('sharded', 'streamed') dispatch
-through `repro_torch.distribute`. Not ported: the elastic executor pool
-(`repro.serve.pool`), refused with `NotImplementedError` (ROADMAP Queue 1
-item 8).
+through `repro_torch.distribute`; `ServerConfig(pool=...)` serves through
+the elastic executor pool (pool.py).
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ from repro_torch.serve.batcher import (
 )
 from repro_torch.serve.controller import AdaptiveBatchController
 from repro_torch.serve.executor import SCALE_OUT_MODES, BatchExecutor, next_pow2
+from repro_torch.serve.pool import ExecutorPool, PoolMember
 from repro_torch.serve.request import (
     PRIORITIES,
     DeadlineExceeded,
@@ -73,12 +76,14 @@ __all__ = [
     "AdmissionGate",
     "BatchExecutor",
     "DeadlineExceeded",
+    "ExecutorPool",
     "FilterFuture",
     "FilterRequest",
     "FilterWorkload",
     "FlushPolicy",
     "ImageFilterServer",
     "MicroBatch",
+    "PoolMember",
     "ServerClosed",
     "ServerConfig",
     "ServerDegraded",

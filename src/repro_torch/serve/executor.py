@@ -47,7 +47,10 @@ Failure handling (DESIGN.md §12), as the reference's:
 
 The chaos harness (`repro_torch.runtime.fault`) probes `SITE_EXECUTE` on
 every dispatch with the serve key, the exec mode, the executor's `name`
-(when set) and the batch's request sequence numbers.
+(when set) and the batch's request sequence numbers. An `on_dispatch(key,
+mode, ok)` callback hears every dispatch's outcome with the exec mode
+actually used: the health feed of the elastic pool
+(`repro_torch.serve.pool`), whose members are executors with a `name`.
 
 Telemetry (DESIGN.md §15): the ledger counters live in a
 `repro_torch.obs.MetricsRegistry`; with a `trace=` recorder every dispatch
@@ -61,7 +64,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -94,6 +97,7 @@ class BatchExecutor:
                  tile: tuple[int, int] = (256, 256),
                  tile_batch: int = 8, degrade_after: int = 2,
                  plan_memo_max: int = 256, name: str = "",
+                 on_dispatch: Callable[[str, str, bool], None] | None = None,
                  workloads: dict[str, Workload] | None = None,
                  metrics: MetricsRegistry | None = None,
                  trace=NOOP, profiler=None) -> None:
@@ -113,6 +117,7 @@ class BatchExecutor:
         self.degrade_after = max(int(degrade_after), 1)
         self.plan_memo_max = max(int(plan_memo_max), 1)
         self.name = str(name)
+        self.on_dispatch = on_dispatch
         self._lock = threading.Lock()
         self._plans: OrderedDict[tuple, dict] = OrderedDict()
         self._plans_gen = cache_generation()
@@ -292,21 +297,32 @@ class BatchExecutor:
         prof.record(key, plan, predicted, time.perf_counter() - t0)
         return outs
 
+    def _report(self, key: str, mode: str, ok: bool) -> None:
+        """Tell the owning pool (if any) how one dispatch went -- the §13
+        health feed. A reporter fault never corrupts fulfilment."""
+        if self.on_dispatch is not None:
+            try:
+                self.on_dispatch(key, mode, ok)
+            except Exception:                              # noqa: BLE001
+                pass
+
     def _dispatch(self, key: str, requests: tuple[FilterRequest, ...]
                   ) -> list[torch.Tensor]:
         """`execute` under the per-bucket degraded-exec ladder (§12): a
         scale-out bucket that failed `degrade_after` consecutive dispatches
-        is pinned to the bit-identical local path. (The reference's pool
-        health feed, `on_dispatch`, waits for the pool.)"""
+        is pinned to the bit-identical local path. Every dispatch outcome,
+        with the exec mode actually used, feeds `on_dispatch` (§13)."""
         mode = requests[0].exec
         scale_out = mode in SCALE_OUT_MODES
         if scale_out and key in self._fallback:
             outs = self.execute(key, requests, exec_override="local")
+            self._report(key, "local", True)
             self._c_degraded.inc(member=self.name, bucket=key)
             return outs
         try:
             outs = self.execute(key, requests)
         except BaseException:                              # noqa: BLE001
+            self._report(key, mode, False)
             if scale_out:
                 with self._lock:
                     nfail = self.failures.get(key, 0) + 1
@@ -315,9 +331,11 @@ class BatchExecutor:
                         self._fallback.add(key)
                 if key in self._fallback:
                     outs = self.execute(key, requests, exec_override="local")
+                    self._report(key, "local", True)
                     self._c_degraded.inc(member=self.name, bucket=key)
                     return outs
             raise
+        self._report(key, mode, True)
         if scale_out:
             with self._lock:
                 self.failures[key] = 0

@@ -43,9 +43,12 @@ Execution modes, as the reference's: a request's `exec` (or
 (over `ServerConfig.devices` of the server's device type) or 'streamed'
 (in `ServerConfig.tile` tiles, `tile_batch` a call); the degraded-exec
 ladder serves a scale-out bucket that keeps failing on the local path.
-Not ported, and refused rather than quietly served another way: the
-elastic executor pool (`ServerConfig.pool`), `NotImplementedError` naming
-ROADMAP Queue 1 item 8.
+With `ServerConfig.pool` (one device-id tuple, int or None per member)
+dispatch goes through `repro_torch.serve.pool.ExecutorPool`:
+rendezvous-routed members over explicit device subsets, where a member
+failing `drain_after` consecutive scale-out dispatches is probed and
+rebuilt on its surviving devices or retired. On one card a pool is
+`pool=((0,), (0,))`, two members on device 0.
 
 Observability (DESIGN.md §15), as the reference's: one metrics registry
 read under one lock by `stats()`, tracing (`trace=`: None, True, a JSONL
@@ -78,6 +81,7 @@ from repro_torch.serve.admission import (
 from repro_torch.serve.batcher import MicroBatch, ShapeBucketedBatcher
 from repro_torch.serve.controller import AdaptiveBatchController
 from repro_torch.serve.executor import BatchExecutor, next_pow2
+from repro_torch.serve.pool import ExecutorPool
 from repro_torch.serve.request import (
     PRIORITIES,
     DeadlineExceeded,
@@ -85,6 +89,7 @@ from repro_torch.serve.request import (
     FilterRequest,
 )
 from repro_torch.serve.workload import Workload, resolve_workloads
+from repro_torch.tuning.cache import backend_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +119,10 @@ class ServerConfig:
     tenant_quota: int | None = None         # uniform per-tenant weight cap
     tenant_quotas: dict[str, int] | None = None  # per-tenant overrides
     plan_memo_max: int = 256        # LRU bound of the per-bucket plan memo
-    pool: tuple | None = None       # the reference's elastic pool: not
-    #                                 ported, anything but None raises
+    pool: tuple | None = None       # elastic pool: one device-id tuple (or
+    #                                 int / None) per member (DESIGN.md §13)
+    drain_after: int = 3            # member consecutive scale-out failures
+    #                                 before the pool probes and drains it
     # ------------------------------- workload classes (DESIGN.md §14)
     workloads: dict[str, Workload] | None = None  # extra classes beyond
     #                                 the built-in 'filter' (e.g. 'infer')
@@ -134,11 +141,6 @@ class ImageFilterServer:
         if self.config.exec not in EXEC_MODES:
             raise ValueError(f"exec must be one of {EXEC_MODES}, got "
                              f"{self.config.exec!r}")
-        if self.config.pool is not None:
-            raise NotImplementedError(
-                "ServerConfig.pool (the elastic executor pool, "
-                "`serve/pool.py`) is not ported yet (ROADMAP Queue 1 item 8, "
-                "with `runtime/elastic`); leave pool=None")
         # no card and no explicit device raises here, before any trace
         # file opens or any thread starts
         device = resolve_device(self.config.device)
@@ -167,26 +169,31 @@ class ImageFilterServer:
             tenant_quotas=self.config.tenant_quotas,
             on_wait=self._on_gate_wait if self.config.overload_shed else None,
             metrics=self.metrics)
-        self._executor = BatchExecutor(
-            device=device, pad_pow2=self.config.pad_pow2,
-            devices=self.config.devices, tile=self.config.tile,
-            tile_batch=self.config.tile_batch,
-            degrade_after=self.config.degrade_after,
-            plan_memo_max=self.config.plan_memo_max,
-            workloads=self._workloads, metrics=self.metrics,
-            trace=self.trace)
-        self._profiler = (DispatchProfiler(self.metrics,
-                                           backend=self._executor.backend)
+        backend = backend_key(device)
+        self._profiler = (DispatchProfiler(self.metrics, backend=backend)
                           if self.config.profile or self.trace.enabled
                           else None)
-        self._executor.profiler = self._profiler
         self._controller = (
             AdaptiveBatchController(self.config.max_batch,
                                     self.config.max_delay_ms / 1e3,
                                     workloads=self._workloads,
                                     metrics=self.metrics,
-                                    backend=self._executor.backend)
+                                    backend=backend)
             if self.config.adaptive else None)
+        exec_kw = dict(
+            device=device, pad_pow2=self.config.pad_pow2,
+            tile=self.config.tile, tile_batch=self.config.tile_batch,
+            degrade_after=self.config.degrade_after,
+            plan_memo_max=self.config.plan_memo_max,
+            workloads=self._workloads, metrics=self.metrics,
+            trace=self.trace, profiler=self._profiler)
+        if self.config.pool is not None:
+            self._executor: BatchExecutor | ExecutorPool = ExecutorPool(
+                self.config.pool, drain_after=self.config.drain_after,
+                **exec_kw)
+        else:
+            self._executor = BatchExecutor(devices=self.config.devices,
+                                           **exec_kw)
         self._batcher = ShapeBucketedBatcher(
             self.config.max_batch, self.config.max_delay_ms / 1e3, clock,
             policy=self._controller.params if self._controller else None,
@@ -223,10 +230,10 @@ class ImageFilterServer:
         names that workload's target -- a bank filter, or e.g. an infer
         model. Validation happens here, on the client thread, so a bad
         request fails fast instead of poisoning a coalesced batch: `exec`
-        must be 'local' (the scale-out modes raise `NotImplementedError`
-        before admission), `priority` a §13 class, and the payload must
-        pass the workload's own validation (for 'filter': a known filter
-        name, a known `mult_impl`, one 2-D or (H, W, 1) frame). Blocks
+        must be one of `EXEC_MODES`, `priority` a §13 class, and the
+        payload must pass the workload's own validation (for 'filter': a
+        known filter name, a known `mult_impl`, one 2-D or (H, W, 1)
+        frame). Blocks
         while the server (or `tenant`'s quota) is out of weighted
         in-flight slots (up to `timeout`, then `ServerOverloaded` /
         `TenantOverQuota`).
@@ -373,6 +380,8 @@ class ImageFilterServer:
         snap["compile"] = {"warmed": ex["warmed"], "hits": ex["hits"],
                            "misses": ex["misses"]}
         snap["plan_memo"] = ex["plan_memo"]
+        if "pool" in ex:
+            snap["pool"] = ex["pool"]
         if self._controller is not None:
             snap["controller"] = self._controller.stats()
         snap.update(self._executor.fault_stats())

@@ -12,7 +12,8 @@ calls and against the JAX package's server, on the CPU.
   * serving behaviour: exactly-once delivery under concurrent mixed load,
     poison isolation through `fault_scope`, the scale-out exec modes
     served byte-equal to the direct call (per request and as the server's
-    default), the pool refused at construction, the server refusing to
+    default), the elastic pool accepted (an empty one refused) at
+    construction, the server refusing to
     start without a card unless the CPU is asked for, warmup.
 
 The datapath is all integers: the tolerance is zero. The kernels run only
@@ -265,8 +266,20 @@ def test_scale_out_default_exec_is_refused_at_construction(mode):
 
 
 def test_pool_is_refused_at_construction():
-    with pytest.raises(NotImplementedError, match="pool"):
-        tserve.ImageFilterServer(tserve.ServerConfig(device="cpu", pool=((0,),)))
+    """A pool with no member is refused before the server starts."""
+    with pytest.raises(ValueError, match="pool needs at least one member"):
+        tserve.ImageFilterServer(tserve.ServerConfig(device="cpu", pool=()))
+
+
+def test_pool_is_accepted_at_construction():
+    """`ServerConfig.pool` builds the elastic pool: one member per spec,
+    every member active, serving the direct call's bytes."""
+    with cpu_server(pool=((0,), (0, 1))) as srv:
+        out = srv.submit(image(4), "gaussian3").result(60)
+        pool = srv.stats()["pool"]
+    assert torch.equal(out, apply_filter(image(4), "gaussian3", device="cpu"))
+    assert pool["active"] == 2
+    assert [m["devices"] for m in pool["members"].values()] == [[0], [0, 1]]
 
 
 def test_executor_never_runs_a_scale_out_dispatch_locally():
