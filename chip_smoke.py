@@ -28,7 +28,13 @@ Phases, each fatal on failure:
                hi + lo = -128 included) and of the wide `karatsuba_matmul`
                (limbs past int8, up to 2**20) on ragged shapes and on the
                full-width shape below with M cut to 256 rows; each limb call
-               must take the kernel the wrapper's rule names;
+               must take the kernel the wrapper's rule names; `mitchell_matmul`
+               again at the shapes of each route of its launch plan (the LM
+               decode calls at M = 1 and 4, ragged thin calls, a prefill
+               call, a tiled call), 8-bit and full-range int32 operands,
+               every variant:
+               each call must launch the route its plan names, and both
+               routes must run K splits > 1;
   4. main   -- the filter path: the port's entry points on N=8 480x640
                noisy fingerprint frames (the FVC2004 DB1 frame size): the
                filter bank for every multiplier through the default plans
@@ -108,7 +114,8 @@ Phases, each fatal on failure:
                at the reference CLI's traffic (batch 4, prompt 32, 32 tokens)
                for exact, mitchell and karatsuba_int16; [lm] lines: prefill
                ms, decode ms a token, tokens/s, launches and host syncs a
-               decode step (the CUDA sync debug mode), peak memory;
+               decode step (the CUDA sync debug mode), peak memory, and
+               `mitchell_matmul`'s device ms in one mitchell decode step;
  16. times  -- each kernel with CUDA events (median after warm-up) beside
                its plain version, its bound and, where PyTorch has one call
                that computes the same sums, that call; the matmul kernels at
@@ -121,10 +128,16 @@ Phases, each fatal on failure:
                block, resident blocks an SM, registers and spills;
                the recurse kernels for every method beside the tiled kernel
                of the first design (variant 0), on [variant] lines too;
+               `mitchell_matmul` at the LM path's decode (M = 4) and prefill
+               (M = 128) shapes beside their bounds, summed to the ms of a
+               decode step; [route] lines: both routes at (M, 896, 4864)
+               for M = 4 .. 2048, the timings behind the plan's route cut;
 The line before the last is a JSON object naming the seven kernels with
 their numbers (and `serve_launches`, their launches in phase 13; for the
 matmul kernels `lm_launches`, their launches in phase 15's three
-`greedy_generate` runs; for the
+`greedy_generate` runs, and for `mitchell_matmul` `decode_step_ms` and
+`decode_step_bound_ms`, phase 16's sum over a decode step's shapes, and
+`lm_decode_step_device_ms`, phase 15's profiler reading; for the
 conv kernels `tile_launches`, the main path's launches by tile, and
 `tile_device_ms`, phase 9's device ms at 16x2048x2048 by tile); the last
 line is the run's result and device.
@@ -177,6 +190,18 @@ KCM_COPY_VARIANT = 5
 MM_SHAPE = (2048, 896, 4864)
 MM_PLAIN_ROWS = 256
 MM_PARITY_SHAPES = ((5, 19, 11), (37, 300, 129))
+# shapes that take each route of `mitchell_matmul`'s launch plan with K splits:
+# the LM path's decode calls (M = 1 and 4) and a prefill call (M = 128, 8
+# row tiles), ragged thin ones (3 row tiles at M = 40), a tiled one whose
+# last split ends in a part tile
+MM_ROUTE_SHAPES = ((1, 4864, 896), (4, 4864, 896), (4, 896, 4864), (4, 896, 128),
+                   (7, 1000, 77), (40, 300, 129), (128, 896, 896), (1100, 300, 70))
+# Qwen2-0.5B's dense calls and their launches a decode step (24 layers): wq
+# and attention wo, wk and wv, wg and wi, the MLP's wo; at M = 4 (batch 4
+# decode) and M = 128 (batch 4 x prompt 32 prefill)
+LM_DENSE = (((896, 896), 48), ((896, 128), 48), ((896, 4864), 48), ((4864, 896), 24))
+LM_DECODE_M, LM_PREFILL_M = 4, 128
+ROUTE_CUT_M = (4, 16, 64, 128, 512, 1024, 2048)   # M at which both routes are timed
 LNS_VARIANTS = ((0, True), (1, False), (2, False), (3, False))   # (num_ecc, case_split)
 KERNEL_METHODS = ("mitchell", "mitchell_ecc1", "mitchell_ecc2", "mitchell_ecc3",
                   "schoolbook_int16", "karatsuba_int16")
@@ -1276,9 +1301,9 @@ def count_syncs(fn) -> tuple[object, dict[str, int]]:
 
 
 def device_busy_ms(fn) -> tuple[float, float, dict[str, float]] | None:
-    """(wall ms, summed CUDA kernel ms, the three kernels with the most
-    device ms) of fn() ended by a sync, under torch.profiler; None when the
-    profiler saw no device time."""
+    """(wall ms, summed CUDA kernel ms, device ms by kernel name (60
+    characters), most first) of fn() ended by a sync, under torch.profiler;
+    None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1293,8 +1318,8 @@ def device_busy_ms(fn) -> tuple[float, float, dict[str, float]] | None:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
-    return (wall, busy, top) if busy > 0 else None
+    ranked = dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+    return (wall, busy, ranked) if busy > 0 else None
 
 
 def lm_steps(model, params, prompt, steps: int) -> list[torch.Tensor]:
@@ -1346,13 +1371,15 @@ def phase_lm_parity(cfg, prompt: torch.Tensor, max_err: dict) -> None:
         f"{r5:.6g} of max |logit| {scale:.6g}; {time.perf_counter() - t0:.1f} s")
 
 
-def phase_lm(device: torch.device, max_err: dict) -> dict[str, int]:
+def phase_lm(device: torch.device, max_err: dict) -> tuple[dict[str, int], float | None]:
     """Qwen2-0.5B at full published width (24 layers, bf16, random weights
     from a seeded generator): `greedy_generate` at the reference CLI's
     traffic (batch 4, prompt 32, 32 tokens) for exact, mitchell and
     karatsuba_int16 on the kernels; [lm] lines with prefill ms, decode ms a
     token, tokens/s, launches and host syncs a decode step, peak memory.
-    -> the matmul kernels' launches over the three main-path runs."""
+    -> (the matmul kernels' launches over the three main-path runs,
+    mitchell_matmul's device ms in one mitchell decode step under
+    torch.profiler, None if it saw no device time)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1373,6 +1400,7 @@ def phase_lm(device: torch.device, max_err: dict) -> dict[str, int]:
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
         f"(float32 master weights)")
     lm_launches = dict.fromkeys(MATMUL_KERNELS, 0)
+    mitchell_step_ms = None          # mitchell_matmul's device ms in one decode step
     for method in LM_METHODS:
         model = build_model(dataclasses.replace(cfg, matmul_method=method))
         greedy_generate(model, params, prompt, steps=2, s_max=plen + gen)   # warm-up
@@ -1431,13 +1459,17 @@ def phase_lm(device: torch.device, max_err: dict) -> dict[str, int]:
             f" and makes {syncs} host syncs; peak {peak / 2**30:.3f} GiB; "
             f"main-path launches {{{', '.join(f'{k}: {v}' for k, v in launches.items())}}}; "
             f"tokens[0][:8] {tokens[0, :8].tolist()}")
+        if busy is not None and method == "mitchell":
+            mitchell_step_ms = sum(v for name, v in busy[2].items() if "mitchell_matmul" in name)
         log(f"[lm] {method}: host syncs of a decode step by site {sync_sites}; one decode "
             + ("step under torch.profiler: not measured (no device time seen)" if busy is None
                else f"step under torch.profiler: wall {busy[0]:.4f} ms, CUDA kernels "
-                    f"{busy[1]:.4f} ms, device busy {busy[1] / busy[0]:.4f}; most device ms "
-                    + ", ".join(f"{k} {v:.4f}" for k, v in busy[2].items())))
+                    f"{busy[1]:.4f} ms, device busy {busy[1] / busy[0]:.4f}"
+                    + (f", mitchell_matmul {mitchell_step_ms:.4f} ms"
+                       if method == "mitchell" else "") + "; most device ms "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in list(busy[2].items())[:3])))
     log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s (host clock)")
-    return lm_launches
+    return lm_launches, mitchell_step_ms
 
 
 def tile_cases(shape) -> dict[str, list]:
@@ -2032,6 +2064,48 @@ def int8_limbs(shape: tuple[int, int, int], karatsuba: bool, seed: int,
     return tuple(torch.from_numpy(v.astype(np.int32)).to(device) for v in (ah, al, bh, bl))
 
 
+def mitchell_route_parity(max_err: dict, failures: list, device: torch.device) -> int:
+    """`mitchell_matmul` at MM_ROUTE_SHAPES against its plain version, on
+    8-bit and full-range int32 operands (INT_MIN, INT_MAX, 0 and 2**16
+    placed in), for every variant; each call must launch the route that
+    `launch_plan` names, and both routes must run K splits > 1.
+    -> the number of comparisons."""
+    from repro_torch.kernels import mitchell_matmul as mm
+
+    checked = 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    split_routes = set()
+    for i, shape in enumerate(MM_ROUTE_SHAPES):
+        sm, sk, sn = shape
+        plan = mm.launch_plan(sm, sk, sn, sms)
+        if plan.splits > 1:
+            split_routes.add(plan.route)
+        log(f"[parity] mitchell_matmul {shape}: {plan}, grid {plan.grid(sm, sn)}")
+        rng = np.random.default_rng(80 + i)
+        for lo, hi in ((-255, 256), (-(1 << 31), 1 << 31)):
+            a = rng.integers(lo, hi, (sm, sk), dtype=np.int64)
+            b = rng.integers(lo, hi, (sk, sn), dtype=np.int64)
+            if lo < -256:
+                a[0, :4] = (-(1 << 31), (1 << 31) - 1, 0, 1 << 16)
+                b[:4, 0] = ((1 << 31) - 1, -(1 << 31), 1 << 16, 0)
+            a, b = (torch.from_numpy(v.astype(np.int32)).to(device) for v in (a, b))
+            for num_ecc, split in LNS_VARIANTS + ((2, True),):
+                kw = dict(num_ecc=num_ecc, case_split=split)
+                before = dict(mm.ROUTE_LAUNCHES)
+                got = mm.mitchell_matmul_kernel(a, b, **kw)
+                ran = {r: c - before[r] for r, c in mm.ROUTE_LAUNCHES.items() if c != before[r]}
+                if ran != {plan.route: 1}:
+                    failures.append(f"mitchell_matmul {shape}: launched {ran}, the plan "
+                                    f"names {plan.route}")
+                check_equal(max_err, failures, "mitchell_matmul", got,
+                            mm.mitchell_matmul_plain(a, b, **kw),
+                            f"{kw} {shape} in [{lo}, {hi}) ({plan})")
+                checked += 1
+    if split_routes != {"thin", "tiled"}:
+        failures.append(f"mitchell_matmul: K splits > 1 ran only on {split_routes}")
+    return checked
+
+
 def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
     """The matmul kernels against their plain versions on the same CUDA
     tensors: every LNS variant; both limb modes on int8 limbs (the int8
@@ -2099,6 +2173,7 @@ def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
                         mm.mitchell_matmul_plain(a, b, **kw),
                         f"{kw} {shape} full int32 range")
             checked += 1
+    checked += mitchell_route_parity(max_err, failures, device)
     torch.cuda.synchronize()
     log(f"[parity] {checked} matmul kernel/plain comparisons, max |err| "
         f"{ {name: max_err[name] for name in MATMUL_KERNELS} }")
@@ -2264,6 +2339,69 @@ def lns_ops_per_product(num_ecc: int, case_split: bool) -> int:
     return 6 * (num_ecc + 1) + (3 if case_split else 0) + 2
 
 
+def mitchell_bound(shape: tuple[int, int, int], int32_ops_per_s: float,
+                   num_ecc: int = 0, case_split: bool = True) -> tuple[float, str]:
+    """(bound ms, what bounds it) of one `mitchell_matmul` call: its
+    operations over the INT32 rate against its int32 bytes (A and B read
+    once, the output written once) over the memory rate."""
+    m, k, n = shape
+    ops_ms = lns_ops_per_product(num_ecc, case_split) * m * k * n / int32_ops_per_s * 1e3
+    bytes_ms = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def mitchell_lm_times(int32_ops_per_s: float, device: torch.device) -> dict[tuple, dict]:
+    """`mitchell_matmul` (0, True) on 8-bit operands at the LM path's dense
+    shapes, decode (M = 4) and prefill (M = 128): device ms of one call (10
+    queued while the card is held) and ms of one call alone (CUDA events),
+    beside its bound and its plan; the decode step's sum (device ms x
+    launches a step). Then [route] lines: both routes, each with its own
+    split rule (`route_plan`), at (M, 896, 4864) for M in ROUTE_CUT_M: the
+    timings behind the plan's thin-route cut (`THIN_MAX_M`)."""
+    from repro_torch.kernels import mitchell_matmul as mm
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rng = np.random.default_rng(90)
+
+    def operands(m, k, n):
+        return tuple(torch.from_numpy(rng.integers(-255, 256, s).astype(np.int32)).to(device)
+                     for s in ((m, k), (k, n)))
+
+    results = {}
+    step_ms = step_bound = 0.0
+    for m in (LM_DECODE_M, LM_PREFILL_M):
+        for (k, n), per_step in LM_DENSE:
+            a, b = operands(m, k, n)
+            bound, by = mitchell_bound((m, k, n), int32_ops_per_s)
+            row = {"kernel": "mitchell_matmul", "shape": [m, k, n], "num_ecc": 0,
+                   "case_split": True, "plan": str(mm.launch_plan(m, k, n, sms)),
+                   "device_ms": time_ms_batched(lambda: mm.mitchell_matmul_kernel(a, b)),
+                   "call_ms": time_ms(lambda: mm.mitchell_matmul_kernel(a, b), 10),
+                   "bound_ms": bound, "bound_by": by}
+            if m == LM_DECODE_M:
+                row["launches_a_decode_step"] = per_step
+                step_ms += row["device_ms"] * per_step
+                step_bound += bound * per_step
+            results[("mitchell_lm", m, k, n)] = row
+            log(json.dumps(row))
+    results["mitchell_decode_step"] = {"ms": step_ms, "bound_ms": step_bound}
+    log(f"[times] mitchell_matmul a Qwen2-0.5B decode step (batch 4, 168 calls): "
+        f"{step_ms:.6f} ms summed (device ms a call x launches), bound {step_bound:.6f} ms")
+    k, n = 896, 4864
+    for m in ROUTE_CUT_M:
+        a, b = operands(m, k, n)
+        row = {"shape": [m, k, n], "chosen": mm.launch_plan(m, k, n, sms).route}
+        outs = []
+        for route in ("thin", "tiled"):
+            plan = mm.route_plan(route, m, k, n, sms)
+            run = lambda: mm.run_plan(a, b, plan, num_ecc=0, case_split=True)  # noqa: E731
+            outs.append(run())
+            row[route] = {"plan": str(plan), "device_ms": time_ms_batched(run)}
+        assert torch.equal(*outs), f"the two routes differ at {(m, k, n)}"
+        log("[route] " + json.dumps(row))
+    return results
+
+
 def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
                        int32_ops_per_s: float) -> dict[tuple, dict]:
     """Each matmul kernel at the full-width shape on the operands the main
@@ -2283,21 +2421,19 @@ def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
     a, b = qa.magnitude * qa.sign, qb.magnitude * qb.sign
     for num_ecc, split in LNS_VARIANTS:
         kw = dict(num_ecc=num_ecc, case_split=split)
-        ops = lns_ops_per_product(num_ecc, split) * m * k * n
-        nbytes = 4 * (m * k + k * n + m * n)
-        ops_ms, bytes_ms = ops / int32_ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound, by = mitchell_bound(MM_SHAPE, int32_ops_per_s, num_ecc, split)
         row = {"kernel": "mitchell_matmul", "shape": list(MM_SHAPE), **kw,
                "kernel_ms": time_ms(lambda: mm.mitchell_matmul_kernel(a, b, **kw), 10),
                "plain_ms": time_ms(lambda: mm.mitchell_matmul_plain(a, b, **kw), 1,
                                    warmup=0),
                "plain_runs": 1,
                "ops_per_product": lns_ops_per_product(num_ecc, split),
-               "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "bound_ms": bound, "bound_by": by,
                "library_ms": None,
                "library": "none: no PyTorch call computes Mitchell products"}
         results[("mitchell_matmul", num_ecc, split)] = row
         log(json.dumps(row))
+    results.update(mitchell_lm_times(int32_ops_per_s, x.device))
     for kar in (True, False):
         da, _ = quantize_limbs(x, karatsuba=kar)
         db, _ = quantize_limbs(w, karatsuba=kar)
@@ -2384,10 +2520,14 @@ def main() -> int:
     phase_streamed()
     serve_launches = phase_serve(device)
     phase_pool(device)
-    lm_launches = phase_lm(device, max_err)
+    lm_launches, lm_mitchell_ms = phase_lm(device, max_err)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
+    step = mm_times["mitchell_decode_step"]
+    log(f"[times] mitchell_matmul a decode step: {step['ms']:.6f} ms summed at the LM "
+        f"shapes, " + ("not measured" if lm_mitchell_ms is None else f"{lm_mitchell_ms:.6f} ms")
+        + f" under the [lm] profiler; bound {step['bound_ms']:.6f} ms")
     kernels = []
     for name in KERNELS:
         t = times[(name, "refmlm", MAIN_SHAPE)]
@@ -2418,6 +2558,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
             "lm_launches": lm_launches[name],
+            **({"decode_step_ms": step["ms"], "decode_step_bound_ms": step["bound_ms"],
+                "lm_decode_step_device_ms": lm_mitchell_ms}
+               if name == "mitchell_matmul" else {}),
         })
     log(smi)                    # the card's name and power limit, again at the end
     print(json.dumps({"kernels": kernels}))
