@@ -27,12 +27,14 @@ Phases, each fatal on failure:
                `karatsuba_matmul_i8` (int8 limbs, their edges -128 / 127 and
                hi + lo = -128 included) and of the wide `karatsuba_matmul`
                (limbs past int8, up to 2**20) on ragged shapes and on the
-               full-width shape below with M cut to 256 rows; each limb call
-               must take the kernel the wrapper's rule names; `mitchell_matmul`
-               again at the shapes of each route of its launch plan (the LM
-               decode calls at M = 1 and 4, ragged thin calls, a prefill
-               call, a tiled call), 8-bit and full-range int32 operands,
-               every variant:
+               full-width shape below with M cut to 256 rows, and at the
+               hybrid and xLSTM families' edges (4 x 4096 x 8, 4 x 2048 x
+               8384, 128 x 2048 x 8384); each limb call must take the kernel
+               the wrapper's rule names; `mitchell_matmul` again at the
+               shapes of each route of its launch plan (the LM decode calls
+               at M = 1 and 4, ragged thin calls, a prefill call, a tiled
+               call, the same three edges: N = 8, a half-full last column
+               block), 8-bit and full-range int32 operands, every variant:
                each call must launch the route its plan names, and both
                routes must run K splits > 1;
   4. main   -- the filter path: the port's entry points on N=8 480x640
@@ -103,19 +105,27 @@ Phases, each fatal on failure:
                device 0 lost to sharded work (`SITE_SHARD` `dev0`): the
                routed member probes and is retired, the survivor serves the
                rest byte-equal and refuses its own drain (the last member);
- 15. lm     -- Qwen2-0.5B at full published width (24 layers, d_model 896,
-               14 / 2 heads x 64, d_ff 4864, vocab 151936, tied, bf16,
-               random weights from a seeded generator): first cut to 2
-               layers, karatsuba_int16's logits on the kernels byte-equal
+ 15. lm     -- three LMs at full published width and depth, bf16, random
+               weights from a seeded generator: Qwen2-0.5B (24 attn layers,
+               d_model 896, 14 / 2 heads x 64, d_ff 4864, vocab 151936,
+               tied), zamba2-1.2b (38 mamba2 layers, d_model 2048, d_inner
+               4096, 64 heads x 64, state 64; its weight-shared attention
+               block is built and never applied, R7) and xlstm-1.3b (42
+               mLSTM and 6 sLSTM layers, d_model 2048, 4 heads, proj factor
+               2, vocab 50304). Each first cut to 2 layers (xLSTM: one mLSTM,
+               one sLSTM): karatsuba_int16's logits on the kernels byte-equal
                to the plain route (`impl='reference'`), every
                `mitchell_matmul` call's accumulators equal to
-               `mitchell_matmul_plain`'s, and mitchell's logits against the
-               float32-summing reference route (R5); then `greedy_generate`
-               at the reference CLI's traffic (batch 4, prompt 32, 32 tokens)
-               for exact, mitchell and karatsuba_int16; [lm] lines: prefill
-               ms, decode ms a token, tokens/s, launches and host syncs a
-               decode step (the CUDA sync debug mode), peak memory, and
-               `mitchell_matmul`'s device ms in one mitchell decode step;
+               `mitchell_matmul_plain`'s (2 calls a mamba2 layer, 3 an mLSTM,
+               2 an sLSTM, 7 an attn layer, a step), and mitchell's logits
+               against the float32-summing reference route (R5); then
+               `greedy_generate` at the reference CLI's traffic (batch 4,
+               prompt 32, 32 tokens) for exact, mitchell and karatsuba_int16;
+               [lm] lines: prefill ms, decode ms a token, tokens/s, launches
+               (asserted: one a quantized dense call) and host syncs a decode
+               step (the CUDA sync debug mode), peak memory, the device busy
+               share and `mitchell_matmul`'s device ms in one mitchell decode
+               step beside its bound;
  16. times  -- each kernel with CUDA events (median after warm-up) beside
                its plain version, its bound and, where PyTorch has one call
                that computes the same sums, that call; the matmul kernels at
@@ -128,16 +138,18 @@ Phases, each fatal on failure:
                block, resident blocks an SM, registers and spills;
                the recurse kernels for every method beside the tiled kernel
                of the first design (variant 0), on [variant] lines too;
-               `mitchell_matmul` at the LM path's decode (M = 4) and prefill
-               (M = 128) shapes beside their bounds, summed to the ms of a
-               decode step; [route] lines: both routes at (M, 896, 4864)
+               `mitchell_matmul` at the three LMs' decode (M = 4) and
+               prefill (M = 128) shapes beside their bounds, summed to the ms
+               of each LM's decode step; [route] lines: both routes at (M, 896, 4864)
                for M = 4 .. 2048, the timings behind the plan's route cut;
 The line before the last is a JSON object naming the seven kernels with
 their numbers (and `serve_launches`, their launches in phase 13; for the
-matmul kernels `lm_launches`, their launches in phase 15's three
-`greedy_generate` runs, and for `mitchell_matmul` `decode_step_ms` and
-`decode_step_bound_ms`, phase 16's sum over a decode step's shapes, and
-`lm_decode_step_device_ms`, phase 15's profiler reading; for the
+matmul kernels `lm_launches`, their launches in phase 15's nine
+`greedy_generate` runs (three LMs x three methods), and for
+`mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 16's
+sum over a Qwen2-0.5B decode step's shapes, `lm_decode_step_device_ms`,
+phase 15's profiler reading, and `decode_step_by_arch`, the three for each
+LM; for the
 conv kernels `tile_launches`, the main path's launches by tile, and
 `tile_device_ms`, phase 9's device ms at 16x2048x2048 by tile); the last
 line is the run's result and device.
@@ -190,16 +202,29 @@ KCM_COPY_VARIANT = 5
 MM_SHAPE = (2048, 896, 4864)
 MM_PLAIN_ROWS = 256
 MM_PARITY_SHAPES = ((5, 19, 11), (37, 300, 129))
+# The hybrid and xLSTM families' new edges on the matmul kernels: xLSTM's
+# w_if (N = 8, one sixteenth of a thin column block, an eighth of the int8
+# kernel's 64-column tile) and zamba2's in_proj (N = 8384 = 65.5 column
+# blocks of 128) at decode (M = 4) and prefill (M = 128)
+LM_EDGE_SHAPES = ((4, 4096, 8), (4, 2048, 8384), (128, 2048, 8384))
 # shapes that take each route of `mitchell_matmul`'s launch plan with K splits:
 # the LM path's decode calls (M = 1 and 4) and a prefill call (M = 128, 8
 # row tiles), ragged thin ones (3 row tiles at M = 40), a tiled one whose
-# last split ends in a part tile
+# last split ends in a part tile, and the LM edges
 MM_ROUTE_SHAPES = ((1, 4864, 896), (4, 4864, 896), (4, 896, 4864), (4, 896, 128),
-                   (7, 1000, 77), (40, 300, 129), (128, 896, 896), (1100, 300, 70))
-# Qwen2-0.5B's dense calls and their launches a decode step (24 layers): wq
-# and attention wo, wk and wv, wg and wi, the MLP's wo; at M = 4 (batch 4
-# decode) and M = 128 (batch 4 x prompt 32 prefill)
-LM_DENSE = (((896, 896), 48), ((896, 128), 48), ((896, 4864), 48), ((4864, 896), 24))
+                   (7, 1000, 77), (40, 300, 129), (128, 896, 896),
+                   (1100, 300, 70)) + LM_EDGE_SHAPES
+# Each LM's quantized dense calls (K, N) and their launches a decode step,
+# at M = 4 (batch 4 decode) and M = 128 (batch 4 x prompt 32 prefill).
+# Qwen2-0.5B (24 layers): wq and attention wo, wk and wv, wg and wi, the
+# MLP's wo. zamba2-1.2b (38 mamba2 layers): in_proj, out_proj. xlstm-1.3b
+# (42 mLSTM, 6 sLSTM layers): mLSTM up_proj and sLSTM w_in, w_if,
+# down_proj, sLSTM w_out.
+LM_DENSE = {
+    "qwen2-0.5b": (((896, 896), 48), ((896, 128), 48), ((896, 4864), 48), ((4864, 896), 24)),
+    "zamba2-1.2b": (((2048, 8384), 38), ((4096, 2048), 38)),
+    "xlstm-1.3b": (((2048, 8192), 48), ((4096, 8), 42), ((4096, 2048), 42), ((2048, 2048), 6)),
+}
 LM_DECODE_M, LM_PREFILL_M = 4, 128
 ROUTE_CUT_M = (4, 16, 64, 128, 512, 1024, 2048)   # M at which both routes are timed
 LNS_VARIANTS = ((0, True), (1, False), (2, False), (3, False))   # (num_ecc, case_split)
@@ -1249,11 +1274,22 @@ def phase_pool(device: torch.device) -> None:
     log(f"[pool] phase {time.perf_counter() - t_phase:.1f} s (host clock)")
 
 
-LM_ARCH = "qwen2-0.5b"
+# the LMs at full published width: Qwen2-0.5B (dense), zamba2-1.2b (hybrid
+# Mamba2), xlstm-1.3b (mLSTM / sLSTM)
+LM_ARCHS = ("qwen2-0.5b", "zamba2-1.2b", "xlstm-1.3b")
 LM_TRAFFIC = (4, 32, 32)            # batch, prompt, generated tokens: the reference CLI's
 LM_METHODS = ("exact", "mitchell", "karatsuba_int16")
 LM_PARITY_LAYERS = 2
 LM_DECODE_RUNS = 5
+# quantized dense calls a layer makes, by block kind: q, k, v, o and the
+# SwiGLU MLP's wi, wg, wo; in_proj, out_proj; up_proj, w_if, down_proj;
+# w_in, w_out
+DENSE_CALLS = {"attn": 7, "mamba2": 2, "mlstm": 3, "slstm": 2}
+
+
+def dense_calls(cfg) -> int:
+    """Quantized `dense` calls of one forward, prefill or decode step."""
+    return sum(DENSE_CALLS[kind] for kind in cfg.block_kinds())
 
 
 @contextlib.contextmanager
@@ -1336,50 +1372,64 @@ def lm_steps(model, params, prompt, steps: int) -> list[torch.Tensor]:
 
 
 def phase_lm_parity(cfg, prompt: torch.Tensor, max_err: dict) -> None:
-    """The LM path at full width with the depth cut to 2 layers, prefill
-    and 2 decode steps: karatsuba_int16's logits on the kernels byte-equal
-    to the plain route's (`impl='reference'`: the plain limb products);
-    every mitchell_matmul call's accumulators equal to
-    mitchell_matmul_plain's; the mitchell logits' max |diff| against the
-    reference's float32-summing route (R5)."""
+    """An LM at full width with the depth cut to 2 layers (xLSTM: one mLSTM
+    and one sLSTM layer), prefill and 2 decode steps: karatsuba_int16's
+    logits on the kernels byte-equal to the plain route's
+    (`impl='reference'`: the plain limb products); every mitchell_matmul
+    call's accumulators equal to mitchell_matmul_plain's; the mitchell
+    logits' max |diff| against the reference's float32-summing route
+    (R5)."""
     import dataclasses
 
     from repro_torch.models import build_model
 
-    cut = dataclasses.replace(cfg, num_layers=LM_PARITY_LAYERS)
+    cut = dataclasses.replace(cfg, num_layers=LM_PARITY_LAYERS,
+                              slstm_period=2 if cfg.slstm_period else 0)
     params = build_model(cut).init(torch.Generator(prompt.device).manual_seed(1))
     t0 = time.perf_counter()
     lim = dataclasses.replace(cut, matmul_method="karatsuba_int16")
     got = lm_steps(build_model(lim), params, prompt, 2)
     plain = lm_steps(build_model(lim, impl="reference"), params, prompt, 2)
     for i, (g, p) in enumerate(zip(got, plain)):
-        assert torch.equal(g, p), f"karatsuba_int16 logits differ from the plain route, step {i}"
-    log(f"[lm] parity {LM_PARITY_LAYERS} layers, full width: karatsuba_int16 logits of "
-        f"prefill + 2 decode steps byte-equal to the plain route (impl='reference')")
+        assert torch.equal(g, p), f"{cfg.name}: karatsuba_int16 logits differ from the " \
+                                  f"plain route, step {i}"
+    log(f"[lm] {cfg.name} parity, {LM_PARITY_LAYERS} layers {cut.block_kinds()}, full width: "
+        f"karatsuba_int16 logits of prefill + 2 decode steps byte-equal to the plain route "
+        f"(impl='reference')")
     lns = dataclasses.replace(cut, matmul_method="mitchell")
     stats = {"calls": 0, "max_err": 0}
     with checked_mitchell(stats):
         got = lm_steps(build_model(lns), params, prompt, 2)
     max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
-    assert stats["calls"] == 7 * LM_PARITY_LAYERS * 3 and stats["max_err"] == 0, stats
+    assert stats["calls"] == dense_calls(cut) * 3 and stats["max_err"] == 0, (cfg.name, stats)
     ref = lm_steps(build_model(lns, impl="reference"), params, prompt, 2)
     r5 = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
     scale = max(float(r.float().abs().max()) for r in ref)
-    log(f"[lm] parity: mitchell_matmul accumulators == mitchell_matmul_plain on all "
-        f"{stats['calls']} calls (max |err| {stats['max_err']}); mitchell logits against "
-        f"the float32-summing reference route (R5, K = {cfg.d_model} and {cfg.d_ff}): max |diff| "
-        f"{r5:.6g} of max |logit| {scale:.6g}; {time.perf_counter() - t0:.1f} s")
+    ks = sorted({k for (k, _), _ in LM_DENSE[cfg.name]})
+    log(f"[lm] {cfg.name} parity: mitchell_matmul accumulators == mitchell_matmul_plain on "
+        f"all {stats['calls']} calls (max |err| {stats['max_err']}); mitchell logits against "
+        f"the float32-summing reference route (R5, K = {ks}): max |diff| {r5:.6g} of max "
+        f"|logit| {scale:.6g}; {time.perf_counter() - t0:.1f} s")
 
 
-def phase_lm(device: torch.device, max_err: dict) -> tuple[dict[str, int], float | None]:
-    """Qwen2-0.5B at full published width (24 layers, bf16, random weights
-    from a seeded generator): `greedy_generate` at the reference CLI's
-    traffic (batch 4, prompt 32, 32 tokens) for exact, mitchell and
-    karatsuba_int16 on the kernels; [lm] lines with prefill ms, decode ms a
-    token, tokens/s, launches and host syncs a decode step, peak memory.
-    -> (the matmul kernels' launches over the three main-path runs,
-    mitchell_matmul's device ms in one mitchell decode step under
-    torch.profiler, None if it saw no device time)."""
+def lm_step_bound(arch: str, int32_ops_per_s: float) -> float:
+    """Least ms of `mitchell_matmul`'s calls in one decode step of `arch`
+    (M = LM_DECODE_M): each call's bound x its launches a step."""
+    return sum(mitchell_bound((LM_DECODE_M, k, n), int32_ops_per_s)[0] * per_step
+               for (k, n), per_step in LM_DENSE[arch])
+
+
+def phase_lm_arch(arch: str, device: torch.device, max_err: dict,
+                  int32_ops_per_s: float) -> tuple[dict[str, int], float | None]:
+    """One LM at full published width and depth (bf16, random weights from
+    a seeded generator): its 2-layer parity, then `greedy_generate` at the
+    reference CLI's traffic (batch 4, prompt 32, 32 tokens) for exact,
+    mitchell and karatsuba_int16 on the kernels; [lm] lines with prefill
+    ms, decode ms a token, tokens/s, launches and host syncs a decode step,
+    the device busy share, peak memory. -> (the matmul kernels' launches
+    over the three main-path runs, mitchell_matmul's device ms in one
+    mitchell decode step under torch.profiler, None if it saw no device
+    time)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1387,7 +1437,7 @@ def phase_lm(device: torch.device, max_err: dict) -> tuple[dict[str, int], float
     from repro_torch.runtime.serve_lib import greedy_generate
 
     t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     batch, plen, gen = LM_TRAFFIC
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, plen))).to(device)
@@ -1395,11 +1445,16 @@ def phase_lm(device: torch.device, max_err: dict) -> tuple[dict[str, int], float
 
     params = build_model(cfg).init(torch.Generator(device).manual_seed(0))
     n_params = build_model(cfg).count_params(params)
-    log(f"[lm] {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} / {cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
-        f"(float32 master weights)")
-    lm_launches = dict.fromkeys(MATMUL_KERNELS, 0)
+    kinds = cfg.block_kinds()
+    log(f"[lm] {arch}: {cfg.num_layers} layers "
+        f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{n_params} parameters (float32 master weights)")
+    step_calls = sum(per_step for _, per_step in LM_DENSE[arch])
+    assert step_calls == dense_calls(cfg), (arch, step_calls, dense_calls(cfg))
+    bound = lm_step_bound(arch, int32_ops_per_s)
+    launches_sum = dict.fromkeys(MATMUL_KERNELS, 0)
     mitchell_step_ms = None          # mitchell_matmul's device ms in one decode step
     for method in LM_METHODS:
         model = build_model(dataclasses.replace(cfg, matmul_method=method))
@@ -1416,12 +1471,12 @@ def phase_lm(device: torch.device, max_err: dict) -> tuple[dict[str, int], float
         assert tokens.shape == (batch, gen) and tokens.dtype == torch.int32, tokens.shape
         assert 0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size
         for name in MATMUL_KERNELS:
-            lm_launches[name] += launches[name]
+            launches_sum[name] += launches[name]
         if method == "exact":
             assert not any(launches.values()), f"exact launched a matmul kernel: {launches}"
         else:
             kernel = "mitchell_matmul" if method == "mitchell" else "karatsuba_matmul_i8"
-            assert launches[kernel] > 0, f"{method}: {kernel} never launched"
+            assert launches[kernel] > 0, f"{arch} {method}: {kernel} never launched"
             assert launches["karatsuba_matmul"] == 0, "the wide limb kernel ran on the LM path"
 
         # the split: prefill, then decode steps, each ended by a sync
@@ -1431,7 +1486,7 @@ def phase_lm(device: torch.device, max_err: dict) -> tuple[dict[str, int], float
         logits, caches, clen = model.prefill(params, {"tokens": prompt}, caches)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        assert bool(torch.isfinite(logits).all()), f"{method}: non-finite prefill logits"
+        assert bool(torch.isfinite(logits).all()), f"{arch} {method}: non-finite prefill logits"
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         step_ms = []
         for _ in range(LM_DECODE_RUNS):
@@ -1445,31 +1500,55 @@ def phase_lm(device: torch.device, max_err: dict) -> tuple[dict[str, int], float
             lambda: model.decode_step(params, tok, caches, clen))
         syncs = sum(sync_sites.values())
         step_launches = {k: v for k, v in matmul_launches().items() if v}
-        assert bool(torch.isfinite(logits).all()), f"{method}: non-finite decode logits"
+        if method != "exact":
+            assert step_launches == {kernel: step_calls}, (arch, method, step_launches)
+        assert bool(torch.isfinite(logits).all()), f"{arch} {method}: non-finite decode logits"
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         try:
             busy = device_busy_ms(lambda: model.decode_step(params, tok, caches, clen))
         except Exception as err:                         # noqa: BLE001
             busy = None
-            log(f"[lm] {method}: torch.profiler failed ({err!r})")
-        log(f"[lm] {method}: greedy_generate {batch}x{plen} + {gen} tokens in {wall:.4f} s "
-            f"(host clock), {batch * gen / wall:.2f} tokens/s; prefill {prefill_ms:.4f} ms; "
-            f"decode {statistics.median(step_ms):.4f} ms a token (median of "
-            f"{LM_DECODE_RUNS}); a decode step launches {step_launches or 'no matmul kernel'}"
-            f" and makes {syncs} host syncs; peak {peak / 2**30:.3f} GiB; "
-            f"main-path launches {{{', '.join(f'{k}: {v}' for k, v in launches.items())}}}; "
+            log(f"[lm] {arch} {method}: torch.profiler failed ({err!r})")
+        log(f"[lm] {arch} {method}: greedy_generate {batch}x{plen} + {gen} tokens in "
+            f"{wall:.4f} s (host clock), {batch * gen / wall:.2f} tokens/s; prefill "
+            f"{prefill_ms:.4f} ms; decode {statistics.median(step_ms):.4f} ms a token (median "
+            f"of {LM_DECODE_RUNS}); a decode step launches "
+            f"{step_launches or 'no matmul kernel'} and makes {syncs} host syncs; peak "
+            f"{peak / 2**30:.3f} GiB; main-path launches "
+            f"{{{', '.join(f'{k}: {v}' for k, v in launches.items())}}}; "
             f"tokens[0][:8] {tokens[0, :8].tolist()}")
         if busy is not None and method == "mitchell":
             mitchell_step_ms = sum(v for name, v in busy[2].items() if "mitchell_matmul" in name)
-        log(f"[lm] {method}: host syncs of a decode step by site {sync_sites}; one decode "
-            + ("step under torch.profiler: not measured (no device time seen)" if busy is None
-               else f"step under torch.profiler: wall {busy[0]:.4f} ms, CUDA kernels "
+        log(f"[lm] {arch} {method}: host syncs of a decode step by site {sync_sites}; one "
+            + ("decode step under torch.profiler: not measured (no device time seen)"
+               if busy is None
+               else f"decode step under torch.profiler: wall {busy[0]:.4f} ms, CUDA kernels "
                     f"{busy[1]:.4f} ms, device busy {busy[1] / busy[0]:.4f}"
-                    + (f", mitchell_matmul {mitchell_step_ms:.4f} ms"
+                    + (f", mitchell_matmul {mitchell_step_ms:.4f} ms (bound {bound:.6f} ms)"
                        if method == "mitchell" else "") + "; most device ms "
                     + ", ".join(f"{k} {v:.4f}" for k, v in list(busy[2].items())[:3])))
-    log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s (host clock)")
-    return lm_launches, mitchell_step_ms
+        del model, caches, logits
+    del params
+    torch.cuda.empty_cache()
+    log(f"[lm] {arch} phase {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches_sum, mitchell_step_ms
+
+
+def phase_lm(device: torch.device, max_err: dict,
+             int32_ops_per_s: float) -> tuple[dict[str, int], dict[str, float | None]]:
+    """`phase_lm_arch` for each of LM_ARCHS. -> (the matmul kernels'
+    launches over every main-path run, mitchell_matmul's device ms in one
+    mitchell decode step by arch)."""
+    t_phase = time.perf_counter()
+    lm_launches = dict.fromkeys(MATMUL_KERNELS, 0)
+    step_ms = {}
+    for arch in LM_ARCHS:
+        launches, step_ms[arch] = phase_lm_arch(arch, device, max_err, int32_ops_per_s)
+        for name in MATMUL_KERNELS:
+            lm_launches[name] += launches[name]
+    log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s (host clock); main-path launches "
+        f"of the {len(LM_ARCHS)} LMs {lm_launches}")
+    return lm_launches, step_ms
 
 
 def tile_cases(shape) -> dict[str, list]:
@@ -2153,6 +2232,14 @@ def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
         for kar in (True, False):
             limb_check(int8_limbs(shape, kar, 60 + i, device), kar,
                        f"{shape} int8 limbs", "karatsuba_matmul_i8")
+    for i, shape in enumerate(LM_EDGE_SHAPES):       # N = 8 and N = 8384 on both limb kernels
+        for kar in (True, False):
+            limb_check(int8_limbs(shape, kar, 75 + i, device), kar,
+                       f"{shape} int8 limbs", "karatsuba_matmul_i8")
+            # past int8, and within the plain version's exact float64 range at K = 4096
+            a, b, a_lo, b_lo = mm_operands(shape, -(1 << 16), 1 << 16, 78 + i, device)
+            limb_check((a, a_lo, b, b_lo), kar, f"{shape} in [-2**16, 2**16)",
+                       "karatsuba_matmul")
     for i, shape in enumerate(MM_PARITY_SHAPES):     # one pair just past the rule
         for kar, edge in ((True, (64, 64)), (True, (-65, -64)), (False, (128, 0)),
                           (False, (0, -129))):
@@ -2368,9 +2455,9 @@ def mitchell_lm_times(int32_ops_per_s: float, device: torch.device) -> dict[tupl
                      for s in ((m, k), (k, n)))
 
     results = {}
-    step_ms = step_bound = 0.0
+    shapes = dict.fromkeys(shape for dense in LM_DENSE.values() for shape, _ in dense)
     for m in (LM_DECODE_M, LM_PREFILL_M):
-        for (k, n), per_step in LM_DENSE:
+        for k, n in shapes:
             a, b = operands(m, k, n)
             bound, by = mitchell_bound((m, k, n), int32_ops_per_s)
             row = {"kernel": "mitchell_matmul", "shape": [m, k, n], "num_ecc": 0,
@@ -2379,14 +2466,21 @@ def mitchell_lm_times(int32_ops_per_s: float, device: torch.device) -> dict[tupl
                    "call_ms": time_ms(lambda: mm.mitchell_matmul_kernel(a, b), 10),
                    "bound_ms": bound, "bound_by": by}
             if m == LM_DECODE_M:
-                row["launches_a_decode_step"] = per_step
-                step_ms += row["device_ms"] * per_step
-                step_bound += bound * per_step
+                row["launches_a_decode_step"] = {arch: per_step for arch, dense in LM_DENSE.items()
+                                                 for shape, per_step in dense if shape == (k, n)}
             results[("mitchell_lm", m, k, n)] = row
             log(json.dumps(row))
-    results["mitchell_decode_step"] = {"ms": step_ms, "bound_ms": step_bound}
-    log(f"[times] mitchell_matmul a Qwen2-0.5B decode step (batch 4, 168 calls): "
-        f"{step_ms:.6f} ms summed (device ms a call x launches), bound {step_bound:.6f} ms")
+    results["mitchell_decode_step"] = {}
+    for arch, dense in LM_DENSE.items():
+        rows = [(results[("mitchell_lm", LM_DECODE_M, k, n)], per_step)
+                for (k, n), per_step in dense]
+        step = {"ms": sum(row["device_ms"] * per_step for row, per_step in rows),
+                "bound_ms": lm_step_bound(arch, int32_ops_per_s),
+                "calls": sum(per_step for _, per_step in rows)}
+        results["mitchell_decode_step"][arch] = step
+        log(f"[times] mitchell_matmul a {arch} decode step (batch 4, {step['calls']} calls): "
+            f"{step['ms']:.6f} ms summed (device ms a call x launches), bound "
+            f"{step['bound_ms']:.6f} ms")
     k, n = 896, 4864
     for m in ROUTE_CUT_M:
         a, b = operands(m, k, n)
@@ -2494,6 +2588,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401 -- fails here when run without the repository
+    t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
@@ -2520,14 +2615,18 @@ def main() -> int:
     phase_streamed()
     serve_launches = phase_serve(device)
     phase_pool(device)
-    lm_launches, lm_mitchell_ms = phase_lm(device, max_err)
+    lm_launches, lm_mitchell_ms = phase_lm(device, max_err, int32_ops_per_s)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
-    step = mm_times["mitchell_decode_step"]
-    log(f"[times] mitchell_matmul a decode step: {step['ms']:.6f} ms summed at the LM "
-        f"shapes, " + ("not measured" if lm_mitchell_ms is None else f"{lm_mitchell_ms:.6f} ms")
-        + f" under the [lm] profiler; bound {step['bound_ms']:.6f} ms")
+    steps = mm_times["mitchell_decode_step"]
+    for arch, step in steps.items():
+        step["lm_device_ms"] = lm_mitchell_ms[arch]
+        log(f"[times] mitchell_matmul a {arch} decode step: {step['ms']:.6f} ms summed at "
+            f"its shapes, " + ("not measured" if step["lm_device_ms"] is None
+                               else f"{step['lm_device_ms']:.6f} ms")
+            + f" under the [lm] profiler; bound {step['bound_ms']:.6f} ms")
+    step = steps[LM_ARCHS[0]]
     kernels = []
     for name in KERNELS:
         t = times[(name, "refmlm", MAIN_SHAPE)]
@@ -2559,9 +2658,11 @@ def main() -> int:
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
             "lm_launches": lm_launches[name],
             **({"decode_step_ms": step["ms"], "decode_step_bound_ms": step["bound_ms"],
-                "lm_decode_step_device_ms": lm_mitchell_ms}
+                "lm_decode_step_device_ms": step["lm_device_ms"],
+                "decode_step_by_arch": steps}
                if name == "mitchell_matmul" else {}),
         })
+    log(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s (host clock)")
     log(smi)                    # the card's name and power limit, again at the end
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

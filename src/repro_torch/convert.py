@@ -79,8 +79,10 @@ def from_reference_lm_params(params_np: dict, cfg,
     the embedding dicts, and `backbone` = {"segments": one tuple per
     `segment_kinds` segment, holding a block dict per pattern position
     whose leaves stack that position's layers on axis 0 (the reference's
-    `jax.vmap` init); "final_ln"}. The port keeps one dict per layer, in
-    layer order."""
+    `jax.vmap` init); "final_ln"; and, for zamba2, "shared_block"}. The
+    port keeps one dict per layer, in layer order, whatever the rank of a
+    leaf (the mLSTM's (H, Dh, Dh) maps, the sLSTM's recurrent weights, the
+    conv taps), and carries `shared_block` as it is (it is not stacked)."""
     from repro_torch.models.transformer import check_supported, segment_kinds
     check_supported(cfg)
     dev = resolve_device(device)
@@ -95,6 +97,8 @@ def from_reference_lm_params(params_np: dict, cfg,
     out = {k: _to_tensors(v, None, dev) for k, v in params_np.items() if k != "backbone"}
     out["backbone"] = {"layers": layers,
                        "final_ln": _to_tensors(bb["final_ln"], None, dev)}
+    if "shared_block" in bb:
+        out["backbone"]["shared_block"] = _to_tensors(bb["shared_block"], None, dev)
     return out
 
 

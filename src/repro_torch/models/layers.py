@@ -15,7 +15,7 @@ value, softmax in `scores_dtype`); the reference computes them outside any
 Pallas kernel, so no hand-written kernel stands behind them here either.
 Multi-head latent attention (`mla_attention`) and cross-attention
 (`kv_override`) wait for the MoE and VLM families (ROADMAP Queue 1 item
-10).
+1).
 
 Conventions:
   x: (B, S, D) activations, in the config's dtype.

@@ -2,8 +2,9 @@
 init_cache / prefill / decode_step / count_params.
 
 Counterpart of `repro.models.model`, for the block kinds the port runs
-(`transformer.SUPPORTED_KINDS`); any other config raises
-`NotImplementedError` here, at `build_model`.
+(`transformer.SUPPORTED_KINDS`): the dense, audio, hybrid (zamba2: Mamba2
+blocks) and xLSTM (mLSTM / sLSTM blocks) families. The MoE (MLA) and VLM
+families raise `NotImplementedError` here, at `build_model`.
 
 Input contract per cfg.input_kind:
   tokens   batch = {"tokens" (B, S) int}
@@ -15,7 +16,7 @@ Its quantized linears take `impl` ('auto': the Hopper kernels on the card,
 the reference's semantics on the CPU; 'reference' keeps the reference's
 semantics on any device, which on the card runs each kernel's plain
 version for the limb family and the float32-summing LNS route).
-The loss waits for the training slice (ROADMAP Queue 1 item 10).
+The loss waits for the training slice (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -123,10 +124,11 @@ def build_model(cfg, device: str | torch.device | None = None, *,
         positions = cache_len[:, None] + torch.zeros_like(tokens, dtype=torch.int32)
         h, new_caches, _ = backbone_apply(params["backbone"], cfg, x,
                                           positions=positions, caches=caches,
-                                          cache_len=cache_len, impl=impl)
+                                          cache_len=cache_len, decode=True, impl=impl)
         return logits_of(params, h), new_caches, cache_len + tokens.shape[1]
 
     def count_params(params: Params) -> int:
+        """Every parameter, zamba2's `shared_block` included."""
         return int(sum(t.numel() for t in _leaves(params)))
 
     return Model(cfg, dev, init, forward, init_cache, prefill, decode_step,
