@@ -29,7 +29,11 @@ Phases, each fatal on failure:
                (limbs past int8, up to 2**20) on ragged shapes and on the
                full-width shape below with M cut to 256 rows, and at the
                hybrid and xLSTM families' edges (4 x 4096 x 8, 4 x 2048 x
-               8384, 128 x 2048 x 8384); each limb call must take the kernel
+               8384, 128 x 2048 x 8384) and the MoE and VLM families' (4 x
+               28672 x 8192, 4 x 1536 x 24576, the tiled-route image
+               projection 6400 x 8192 x 1024, 128 x 18432 x 7168; these four
+               through `mitchell_matmul` once each, 8-bit operands, the
+               route its plan names); each limb call must take the kernel
                the wrapper's rule names; `mitchell_matmul` again at the
                shapes of each route of its launch plan (the LM decode calls
                at M = 1 and 4, ragged thin calls, a prefill call, a tiled
@@ -105,19 +109,33 @@ Phases, each fatal on failure:
                device 0 lost to sharded work (`SITE_SHARD` `dev0`): the
                routed member probes and is retired, the survivor serves the
                rest byte-equal and refuses its own drain (the last member);
- 15. lm     -- three LMs at full published width and depth, bf16, random
-               weights from a seeded generator: Qwen2-0.5B (24 attn layers,
-               d_model 896, 14 / 2 heads x 64, d_ff 4864, vocab 151936,
-               tied), zamba2-1.2b (38 mamba2 layers, d_model 2048, d_inner
-               4096, 64 heads x 64, state 64; its weight-shared attention
-               block is built and never applied, R7) and xlstm-1.3b (42
-               mLSTM and 6 sLSTM layers, d_model 2048, 4 heads, proj factor
-               2, vocab 50304). Each first cut to 2 layers (xLSTM: one mLSTM,
-               one sLSTM): karatsuba_int16's logits on the kernels byte-equal
-               to the plain route (`impl='reference'`), every
-               `mitchell_matmul` call's accumulators equal to
-               `mitchell_matmul_plain`'s (2 calls a mamba2 layer, 3 an mLSTM,
-               2 an sLSTM, 7 an attn layer, a step), and mitchell's logits
+ 15. lm     -- six LMs at full published width, bf16 activations over
+               float32 master weights, random weights from a seeded
+               generator: at full depth Qwen2-0.5B (24 attn
+               layers, d_model 896, 14 / 2 heads x 64, d_ff 4864, vocab
+               151936, tied), zamba2-1.2b (38 mamba2 layers, d_model 2048,
+               d_inner 4096, 64 heads x 64, state 64; its weight-shared
+               attention block is built and never applied, R7) and
+               xlstm-1.3b (42 mLSTM and 6 sLSTM layers, d_model 2048, 4
+               heads, proj factor 2, vocab 50304); with the depth cut that
+               one card holds (LM_CUTS) deepseek-v3-671b (one dense MLA
+               layer and one MoE layer of all 256 experts, d_model 7168),
+               kimi-k2-1t-a32b (one dense GQA layer and one MoE layer of
+               all 384 experts, d_model 7168, 74.4 GiB of weights) and
+               llama-3.2-vision-90b (four attn layers and one attn_cross
+               layer, d_model 8192, 1600 image tokens: seeded (4, 1600,
+               8192) embeddings through prefill, then decode_step, which
+               `greedy_generate` cannot do, R8; every xgate set to 1.0).
+               Each first cut to 2 layers (xLSTM: one mLSTM, one sLSTM; the
+               VLM: attn and attn_cross; the MoE family: its dense layer and
+               a moe layer, deepseek's run itself, kimi's with 32 of its 384
+               experts, LM_PARITY_CUTS): karatsuba_int16's logits on the
+               kernels byte-equal to the plain route (`impl='reference'`),
+               every `mitchell_matmul` call's accumulators equal to
+               `mitchell_matmul_plain`'s (2 calls a mamba2 layer, 3 an
+               mLSTM, 2 an sLSTM, 7 an attn or moe layer, 9 an attn_cross
+               layer, a step; 2 more an attn_cross layer at prefill), and,
+               but for the MoE models and the VLM (LM_R5_SKIP), mitchell's logits
                against the float32-summing reference route (R5); then
                `greedy_generate` at the reference CLI's traffic (batch 4,
                prompt 32, 32 tokens) for exact, mitchell and karatsuba_int16;
@@ -138,14 +156,14 @@ Phases, each fatal on failure:
                block, resident blocks an SM, registers and spills;
                the recurse kernels for every method beside the tiled kernel
                of the first design (variant 0), on [variant] lines too;
-               `mitchell_matmul` at the three LMs' decode (M = 4) and
+               `mitchell_matmul` at the six LMs' decode (M = 4) and
                prefill (M = 128) shapes beside their bounds, summed to the ms
                of each LM's decode step; [route] lines: both routes at (M, 896, 4864)
                for M = 4 .. 2048, the timings behind the plan's route cut;
 The line before the last is a JSON object naming the seven kernels with
 their numbers (and `serve_launches`, their launches in phase 13; for the
-matmul kernels `lm_launches`, their launches in phase 15's nine
-`greedy_generate` runs (three LMs x three methods), and for
+matmul kernels `lm_launches`, their launches in phase 15's eighteen
+greedy runs (six LMs x three methods), and for
 `mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 16's
 sum over a Qwen2-0.5B decode step's shapes, `lm_decode_step_device_ms`,
 phase 15's profiler reading, and `decode_step_by_arch`, the three for each
@@ -158,6 +176,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -165,7 +184,13 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# one growing segment a stream, whose free pages go back to the card: the
+# [lm] runs free and reload 25-75 GiB of weights, and kimi-k2's cut leaves
+# ~4 GiB beside its 74.39 GiB, too little for the default allocator's
+# cached fragments
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+import torch  # noqa: E402 -- after the allocator setting it reads
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -206,24 +231,50 @@ MM_PARITY_SHAPES = ((5, 19, 11), (37, 300, 129))
 # w_if (N = 8, one sixteenth of a thin column block, an eighth of the int8
 # kernel's 64-column tile) and zamba2's in_proj (N = 8384 = 65.5 column
 # blocks of 128) at decode (M = 4) and prefill (M = 128)
-LM_EDGE_SHAPES = ((4, 4096, 8), (4, 2048, 8384), (128, 2048, 8384))
+HYBRID_EDGE_SHAPES = ((4, 4096, 8), (4, 2048, 8384), (128, 2048, 8384))
+# The MoE and VLM families' new edges: the largest K (the VLM's MLP down
+# projection, 28672 -> 8192) and the widest N (MLA's wq_b, 1536 -> 24576)
+# at decode, the first LM call on the tiled route (the VLM's image K / V
+# projection: 4 x 1600 image tokens, 8192 -> 1024) and a prefill call
+# (deepseek-v3's dense MLP down projection, 18432 -> 7168). Held against the
+# plain versions once each (mitchell_matmul: the LM's variant on 8-bit
+# operands): the plain LNS version forms every element product, 5.4e10 at
+# the tiled-route call
+MOE_VLM_EDGE_SHAPES = ((4, 28672, 8192), (4, 1536, 24576), (6400, 8192, 1024),
+                       (128, 18432, 7168))
+LM_EDGE_SHAPES = HYBRID_EDGE_SHAPES + MOE_VLM_EDGE_SHAPES
 # shapes that take each route of `mitchell_matmul`'s launch plan with K splits:
 # the LM path's decode calls (M = 1 and 4) and a prefill call (M = 128, 8
 # row tiles), ragged thin ones (3 row tiles at M = 40), a tiled one whose
-# last split ends in a part tile, and the LM edges
+# last split ends in a part tile, and the hybrid and xLSTM edges
 MM_ROUTE_SHAPES = ((1, 4864, 896), (4, 4864, 896), (4, 896, 4864), (4, 896, 128),
                    (7, 1000, 77), (40, 300, 129), (128, 896, 896),
-                   (1100, 300, 70)) + LM_EDGE_SHAPES
+                   (1100, 300, 70)) + HYBRID_EDGE_SHAPES
 # Each LM's quantized dense calls (K, N) and their launches a decode step,
 # at M = 4 (batch 4 decode) and M = 128 (batch 4 x prompt 32 prefill).
 # Qwen2-0.5B (24 layers): wq and attention wo, wk and wv, wg and wi, the
 # MLP's wo. zamba2-1.2b (38 mamba2 layers): in_proj, out_proj. xlstm-1.3b
 # (42 mLSTM, 6 sLSTM layers): mLSTM up_proj and sLSTM w_in, w_if,
-# down_proj, sLSTM w_out.
+# down_proj, sLSTM w_out. deepseek-v3-671b at its [lm] cut (one MLA attn,
+# one moe layer): MLA wq_a, wq_b, wkv_a, wo; the dense MLP's wi and wg, wo;
+# the shared expert's wi and wg, wo. llama-3.2-vision-90b at its cut (four
+# attn, one attn_cross layer): wq and wo of five self-attentions and of the
+# cross-attention, wk and wv, the MLPs' wi and wg, wo (a decode step reads
+# the image K / V from the cache). kimi-k2-1t-a32b at its cut (one GQA attn,
+# one moe layer): wq and wo, wk and wv; the dense MLP's wi and wg, wo; the
+# shared expert's wi and wg, wo.
 LM_DENSE = {
     "qwen2-0.5b": (((896, 896), 48), ((896, 128), 48), ((896, 4864), 48), ((4864, 896), 24)),
     "zamba2-1.2b": (((2048, 8384), 38), ((4096, 2048), 38)),
     "xlstm-1.3b": (((2048, 8192), 48), ((4096, 8), 42), ((4096, 2048), 42), ((2048, 2048), 6)),
+    "deepseek-v3-671b": (((7168, 1536), 2), ((1536, 24576), 2), ((7168, 576), 2),
+                         ((16384, 7168), 2), ((7168, 18432), 2), ((18432, 7168), 1),
+                         ((7168, 2048), 2), ((2048, 7168), 1)),
+    "llama-3.2-vision-90b": (((8192, 8192), 12), ((8192, 1024), 10), ((8192, 28672), 10),
+                             ((28672, 8192), 5)),
+    "kimi-k2-1t-a32b": (((7168, 8192), 2), ((8192, 7168), 2), ((7168, 1024), 4),
+                        ((7168, 18432), 2), ((18432, 7168), 1), ((7168, 2048), 2),
+                        ((2048, 7168), 1)),
 }
 LM_DECODE_M, LM_PREFILL_M = 4, 128
 ROUTE_CUT_M = (4, 16, 64, 128, 512, 1024, 2048)   # M at which both routes are timed
@@ -1275,21 +1326,91 @@ def phase_pool(device: torch.device) -> None:
 
 
 # the LMs at full published width: Qwen2-0.5B (dense), zamba2-1.2b (hybrid
-# Mamba2), xlstm-1.3b (mLSTM / sLSTM)
-LM_ARCHS = ("qwen2-0.5b", "zamba2-1.2b", "xlstm-1.3b")
+# Mamba2), xlstm-1.3b (mLSTM / sLSTM) at full depth; deepseek-v3-671b (MoE
+# with MLA), llama-3.2-vision-90b (VLM) and kimi-k2-1t-a32b (MoE with GQA)
+# with their depth cut (LM_CUTS)
+LM_ARCHS = ("qwen2-0.5b", "zamba2-1.2b", "xlstm-1.3b", "deepseek-v3-671b",
+            "llama-3.2-vision-90b", "kimi-k2-1t-a32b")
+#: arch -> (the [lm] run's config changes, and why); float32 master
+#: weights, as the reference keeps them
+LM_CUTS = {
+    "deepseek-v3-671b": (
+        dict(num_layers=2, first_dense_layers=1),
+        "61 layers do not fit one 80 GB card: 2 layers, one dense MLA layer and one MoE layer "
+        "with all 256 experts (13,944,134,656 parameters, 51.95 GiB)"),
+    "llama-3.2-vision-90b": (
+        dict(num_layers=5),
+        "100 layers do not fit one card: 5 layers, one period of four attn layers and one "
+        "attn_cross layer, 1600 image tokens (6,597,738,497 parameters, 24.6 GiB)"),
+    "kimi-k2-1t-a32b": (
+        dict(num_layers=2, first_dense_layers=1),
+        "61 layers do not fit one 80 GB card: 2 layers, one dense GQA layer and one MoE layer "
+        "with all 384 experts (19,967,675,392 parameters, 74.39 GiB: 63 GiB of routed experts, "
+        "8.75 GiB of untied embedding and head)"),
+}
+#: arch -> (its parity cut's further config changes, and why)
+LM_PARITY_CUTS = {
+    "kimi-k2-1t-a32b": (
+        dict(num_experts=32),
+        "32 of 384 experts: the plain routes' transients (~10 GB at K x N = 7168 x 18432) do "
+        "not fit beside the run's 74.39 GiB; the routed experts are float einsums, so every "
+        "kernel shape is the run's"),
+}
+#: archs whose parity does not read R5: the float32-summing LNS route forms
+#: every element product, ~1e11 at deepseek-v3's and kimi-k2's cuts and
+#: ~3.4e11 at the VLM's (the image K / V at M = 6400 included), minutes on
+#: the card
+LM_R5_SKIP = ("deepseek-v3-671b", "llama-3.2-vision-90b", "kimi-k2-1t-a32b")
+LM_XGATE = 1.0                      # every cross-attention gate on the card (tanh 0.76)
 LM_TRAFFIC = (4, 32, 32)            # batch, prompt, generated tokens: the reference CLI's
 LM_METHODS = ("exact", "mitchell", "karatsuba_int16")
 LM_PARITY_LAYERS = 2
 LM_DECODE_RUNS = 5
-# quantized dense calls a layer makes, by block kind: q, k, v, o and the
-# SwiGLU MLP's wi, wg, wo; in_proj, out_proj; up_proj, w_if, down_proj;
-# w_in, w_out
-DENSE_CALLS = {"attn": 7, "mamba2": 2, "mlstm": 3, "slstm": 2}
+# quantized dense calls a layer makes in a decode step, by block kind: q, k,
+# v, o (MLA: wq_a, wq_b, wkv_a, wo) and the SwiGLU MLP's wi, wg, wo (a moe
+# layer: the shared experts'; the router and the routed experts are float
+# einsums); attn_cross adds the cross-attention's q and o; in_proj,
+# out_proj; up_proj, w_if, down_proj; w_in, w_out
+DENSE_CALLS = {"attn": 7, "moe": 7, "attn_cross": 9, "mamba2": 2, "mlstm": 3, "slstm": 2}
 
 
 def dense_calls(cfg) -> int:
-    """Quantized `dense` calls of one forward, prefill or decode step."""
+    """Quantized `dense` calls of one decode step."""
     return sum(DENSE_CALLS[kind] for kind in cfg.block_kinds())
+
+
+def prefill_calls(cfg) -> int:
+    """Quantized `dense` calls of one forward or prefill: a decode step's,
+    and the image K / V projections (xattn wk, wv) of each attn_cross layer."""
+    return dense_calls(cfg) + 2 * cfg.block_kinds().count("attn_cross")
+
+
+def lm_config(arch: str):
+    """The config of an [lm] run: the published one, bf16, or its LM_CUTS
+    cut."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **LM_CUTS.get(arch, ({}, ""))[0])
+
+
+def open_gates(params: dict) -> int:
+    """Set every cross-attention gate (`xgate`, zero at init: tanh(0) would
+    erase the cross path) to LM_XGATE; -> how many."""
+    gates = [layer["xgate"] for layer in params["backbone"]["layers"] if "xgate" in layer]
+    for gate in gates:
+        gate.fill_(LM_XGATE)
+    return len(gates)
+
+
+def lm_image(cfg, batch: int, device: torch.device) -> torch.Tensor | None:
+    """Seeded (batch, image_tokens, d_model) float32 image embeddings for a
+    VLM, None for the other configs."""
+    if cfg.input_kind != "tokens+image":
+        return None
+    rng = np.random.default_rng(3)
+    return torch.from_numpy(rng.standard_normal(
+        (batch, cfg.image_tokens, cfg.d_model), dtype=np.float32)).to(device)
 
 
 @contextlib.contextmanager
@@ -1358,58 +1479,80 @@ def device_busy_ms(fn) -> tuple[float, float, dict[str, float]] | None:
     return (wall, busy, ranked) if busy > 0 else None
 
 
-def lm_steps(model, params, prompt, steps: int) -> list[torch.Tensor]:
-    """Prefill `prompt`, then `steps` greedy decode steps; -> the logits
-    of every step (the path `greedy_generate` takes, logits kept)."""
+def lm_steps(model, params, prompt, steps: int,
+             image=None) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """The path `greedy_generate` takes, with `image` in the prefill batch
+    (which `greedy_generate` cannot serve, R8): prefill `prompt`, then
+    greedy decode steps until `steps` tokens are chosen; -> (the logits of
+    the prefill and of each decode step, the (B, steps) int32 tokens)."""
     caches = model.init_cache(prompt.shape[0], prompt.shape[1] + steps)
-    logits, caches, clen = model.prefill(params, {"tokens": prompt}, caches)
-    outs = [logits]
+    batch = {"tokens": prompt} if image is None else {"tokens": prompt, "image_embeds": image}
+    logits, caches, clen = model.prefill(params, batch, caches)
+    outs, toks = [logits], []
     for _ in range(steps):
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        logits, caches, clen = model.decode_step(params, tok, caches, clen)
-        outs.append(logits)
-    return outs
+        toks.append(torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32))
+        if len(toks) < steps:
+            logits, caches, clen = model.decode_step(params, toks[-1], caches, clen,
+                                                     image_embeds=image)
+            outs.append(logits)
+    return outs, torch.cat(toks, dim=1)
 
 
-def phase_lm_parity(cfg, prompt: torch.Tensor, max_err: dict) -> None:
-    """An LM at full width with the depth cut to 2 layers (xLSTM: one mLSTM
-    and one sLSTM layer), prefill and 2 decode steps: karatsuba_int16's
-    logits on the kernels byte-equal to the plain route's
-    (`impl='reference'`: the plain limb products); every mitchell_matmul
-    call's accumulators equal to mitchell_matmul_plain's; the mitchell
-    logits' max |diff| against the reference's float32-summing route
-    (R5)."""
+def parity_config(cfg):
+    """An [lm] run's parity cut: LM_PARITY_LAYERS layers at full width, one
+    of each kind the model mixes (xLSTM: an mLSTM and an sLSTM layer; the
+    VLM: an attn and an attn_cross layer; the MoE family: its first, dense
+    layer and a moe layer), with the arch's LM_PARITY_CUTS."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, num_layers=LM_PARITY_LAYERS,
+        slstm_period=2 if cfg.slstm_period else 0,
+        cross_attn_period=2 if cfg.cross_attn_period else 0,
+        first_dense_layers=min(1, cfg.first_dense_layers),
+        **LM_PARITY_CUTS.get(cfg.name, ({}, ""))[0])
+
+
+def phase_lm_parity(cut, params, prompt: torch.Tensor, image, max_err: dict) -> None:
+    """An LM's parity cut (`parity_config`) on `params`, prefill and 2
+    decode steps: karatsuba_int16's logits on the kernels byte-equal to the
+    plain route's (`impl='reference'`: the plain limb products); every
+    mitchell_matmul call's accumulators equal to mitchell_matmul_plain's;
+    unless the arch is in LM_R5_SKIP, the mitchell logits' max |diff|
+    against the reference's float32-summing route (R5)."""
     import dataclasses
 
     from repro_torch.models import build_model
 
-    cut = dataclasses.replace(cfg, num_layers=LM_PARITY_LAYERS,
-                              slstm_period=2 if cfg.slstm_period else 0)
-    params = build_model(cut).init(torch.Generator(prompt.device).manual_seed(1))
     t0 = time.perf_counter()
     lim = dataclasses.replace(cut, matmul_method="karatsuba_int16")
-    got = lm_steps(build_model(lim), params, prompt, 2)
-    plain = lm_steps(build_model(lim, impl="reference"), params, prompt, 2)
+    got, _ = lm_steps(build_model(lim), params, prompt, 3, image)
+    plain, _ = lm_steps(build_model(lim, impl="reference"), params, prompt, 3, image)
     for i, (g, p) in enumerate(zip(got, plain)):
-        assert torch.equal(g, p), f"{cfg.name}: karatsuba_int16 logits differ from the " \
+        assert torch.equal(g, p), f"{cut.name}: karatsuba_int16 logits differ from the " \
                                   f"plain route, step {i}"
-    log(f"[lm] {cfg.name} parity, {LM_PARITY_LAYERS} layers {cut.block_kinds()}, full width: "
-        f"karatsuba_int16 logits of prefill + 2 decode steps byte-equal to the plain route "
+    note = LM_PARITY_CUTS.get(cut.name, (None, ""))[1]
+    log(f"[lm] {cut.name} parity, {LM_PARITY_LAYERS} layers {cut.block_kinds()}, full width"
+        + (f" ({note})" if note else "") + ": karatsuba_int16 logits of prefill + 2 decode steps byte-equal to the plain route "
         f"(impl='reference')")
     lns = dataclasses.replace(cut, matmul_method="mitchell")
     stats = {"calls": 0, "max_err": 0}
     with checked_mitchell(stats):
-        got = lm_steps(build_model(lns), params, prompt, 2)
+        got, _ = lm_steps(build_model(lns), params, prompt, 3, image)
     max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
-    assert stats["calls"] == dense_calls(cut) * 3 and stats["max_err"] == 0, (cfg.name, stats)
-    ref = lm_steps(build_model(lns, impl="reference"), params, prompt, 2)
-    r5 = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
-    scale = max(float(r.float().abs().max()) for r in ref)
-    ks = sorted({k for (k, _), _ in LM_DENSE[cfg.name]})
-    log(f"[lm] {cfg.name} parity: mitchell_matmul accumulators == mitchell_matmul_plain on "
-        f"all {stats['calls']} calls (max |err| {stats['max_err']}); mitchell logits against "
-        f"the float32-summing reference route (R5, K = {ks}): max |diff| {r5:.6g} of max "
-        f"|logit| {scale:.6g}; {time.perf_counter() - t0:.1f} s")
+    want_calls = prefill_calls(cut) + 2 * dense_calls(cut)
+    assert stats["calls"] == want_calls and stats["max_err"] == 0, (cut.name, stats)
+    ks = sorted({k for (k, _), _ in LM_DENSE[cut.name]})
+    if cut.name in LM_R5_SKIP:
+        r5 = "R5 not measured at this width (LM_R5_SKIP)"
+    else:
+        ref, _ = lm_steps(build_model(lns, impl="reference"), params, prompt, 3, image)
+        diff = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+        scale = max(float(r.float().abs().max()) for r in ref)
+        r5 = (f"mitchell logits against the float32-summing reference route (R5, K = {ks}): "
+              f"max |diff| {diff:.6g} of max |logit| {scale:.6g}")
+    log(f"[lm] {cut.name} parity: mitchell_matmul accumulators == mitchell_matmul_plain on "
+        f"all {stats['calls']} calls (max |err| {stats['max_err']}); {r5}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def lm_step_bound(arch: str, int32_ops_per_s: float) -> float:
@@ -1421,36 +1564,53 @@ def lm_step_bound(arch: str, int32_ops_per_s: float) -> float:
 
 def phase_lm_arch(arch: str, device: torch.device, max_err: dict,
                   int32_ops_per_s: float) -> tuple[dict[str, int], float | None]:
-    """One LM at full published width and depth (bf16, random weights from
-    a seeded generator): its 2-layer parity, then `greedy_generate` at the
-    reference CLI's traffic (batch 4, prompt 32, 32 tokens) for exact,
-    mitchell and karatsuba_int16 on the kernels; [lm] lines with prefill
-    ms, decode ms a token, tokens/s, launches and host syncs a decode step,
-    the device busy share, peak memory. -> (the matmul kernels' launches
-    over the three main-path runs, mitchell_matmul's device ms in one
-    mitchell decode step under torch.profiler, None if it saw no device
-    time)."""
+    """One LM at full published width (bf16, random weights from a seeded
+    generator; the depth of `lm_config`, the VLM's gates open): its 2-layer
+    parity, then `greedy_generate` at the reference CLI's traffic (batch 4,
+    prompt 32, 32 tokens; the VLM with a seeded image through prefill and
+    decode_step, `lm_steps`) for exact, mitchell and karatsuba_int16
+    on the kernels; [lm] lines with prefill ms, decode ms a token,
+    tokens/s, launches and host syncs a decode step, the device busy share,
+    peak memory. -> (the matmul kernels' launches over the three main-path
+    runs, mitchell_matmul's device ms in one mitchell decode step under
+    torch.profiler, None if it saw no device time)."""
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.runtime.serve_lib import greedy_generate
 
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = lm_config(arch)
     batch, plen, gen = LM_TRAFFIC
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, plen))).to(device)
-    phase_lm_parity(cfg, prompt, max_err)
-
-    params = build_model(cfg).init(torch.Generator(device).manual_seed(0))
+    image = lm_image(cfg, batch, device)
+    cut = parity_config(cfg)
+    params = build_model(cut).init(torch.Generator(device).manual_seed(1))
+    open_gates(params)
+    phase_lm_parity(cut, params, prompt, image, max_err)
+    if cut != cfg:                   # else the run reuses the parity's params
+        del params
+        torch.cuda.empty_cache()
+        params = build_model(cfg).init(torch.Generator(device).manual_seed(0))
+        torch.cuda.empty_cache()
+    gates = open_gates(params)
     n_params = build_model(cfg).count_params(params)
+    free, total = torch.cuda.mem_get_info()
     kinds = cfg.block_kinds()
+    cut_note = LM_CUTS.get(arch, (None, "full published depth"))[1]
     log(f"[lm] {arch}: {cfg.num_layers} layers "
         f"({', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}), d_model "
         f"{cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads x "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
-        f"{n_params} parameters (float32 master weights)")
+        f"{cfg.resolved_head_dim}, attention {cfg.attention}, d_ff {cfg.d_ff}"
+        + (f", {cfg.num_experts} experts top {cfg.top_k} (+{cfg.num_shared_experts} shared) x "
+           f"{cfg.moe_d_ff}" if cfg.moe else "")
+        + (f", {cfg.image_tokens} image tokens" if image is not None else "")
+        + f", vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} parameters (float32 master "
+        f"weights, {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+        f"{free / 2**30:.3f} GiB of {total / 2**30:.3f} GiB free); depth: {cut_note}"
+        + (f"; {gates} xgate set to {LM_XGATE} (zero init would erase the cross path)"
+           if gates else ""))
     step_calls = sum(per_step for _, per_step in LM_DENSE[arch])
     assert step_calls == dense_calls(cfg), (arch, step_calls, dense_calls(cfg))
     bound = lm_step_bound(arch, int32_ops_per_s)
@@ -1458,12 +1618,18 @@ def phase_lm_arch(arch: str, device: torch.device, max_err: dict,
     mitchell_step_ms = None          # mitchell_matmul's device ms in one decode step
     for method in LM_METHODS:
         model = build_model(dataclasses.replace(cfg, matmul_method=method))
-        greedy_generate(model, params, prompt, steps=2, s_max=plen + gen)   # warm-up
+
+        def generate(steps: int) -> torch.Tensor:
+            if image is None:
+                return greedy_generate(model, params, prompt, steps=steps, s_max=plen + gen)
+            return lm_steps(model, params, prompt, steps, image)[1]
+
+        generate(2)                                                          # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_matmul_launches()
         t0 = time.perf_counter()
-        tokens = greedy_generate(model, params, prompt, steps=gen, s_max=plen + gen)
+        tokens = generate(gen)
         tokens = tokens.cpu()
         wall = time.perf_counter() - t0
         launches = matmul_launches()
@@ -1483,7 +1649,9 @@ def phase_lm_arch(arch: str, device: torch.device, max_err: dict,
         caches = model.init_cache(batch, plen + gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches, clen = model.prefill(params, {"tokens": prompt}, caches)
+        logits, caches, clen = model.prefill(
+            params, {"tokens": prompt} if image is None
+            else {"tokens": prompt, "image_embeds": image}, caches)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         assert bool(torch.isfinite(logits).all()), f"{arch} {method}: non-finite prefill logits"
@@ -1509,7 +1677,8 @@ def phase_lm_arch(arch: str, device: torch.device, max_err: dict,
         except Exception as err:                         # noqa: BLE001
             busy = None
             log(f"[lm] {arch} {method}: torch.profiler failed ({err!r})")
-        log(f"[lm] {arch} {method}: greedy_generate {batch}x{plen} + {gen} tokens in "
+        how = "greedy_generate" if image is None else "prefill (image) + decode_step"
+        log(f"[lm] {arch} {method}: {how} {batch}x{plen} + {gen} tokens in "
             f"{wall:.4f} s (host clock), {batch * gen / wall:.2f} tokens/s; prefill "
             f"{prefill_ms:.4f} ms; decode {statistics.median(step_ms):.4f} ms a token (median "
             f"of {LM_DECODE_RUNS}); a decode step launches "
@@ -1707,7 +1876,6 @@ def phase_tune(inputs: dict[tuple, torch.Tensor]) -> None:
     stored winner and `apply_filter` on default arguments gives the same
     bytes as with an empty cache. The committed cache (blocks_cuda.json) is
     restored after."""
-    import os
     import tempfile
 
     from repro_torch.filters import apply_filter, resolve_filter_plan
@@ -2232,14 +2400,29 @@ def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
         for kar in (True, False):
             limb_check(int8_limbs(shape, kar, 60 + i, device), kar,
                        f"{shape} int8 limbs", "karatsuba_matmul_i8")
-    for i, shape in enumerate(LM_EDGE_SHAPES):       # N = 8 and N = 8384 on both limb kernels
+    for i, shape in enumerate(LM_EDGE_SHAPES):       # the LM edges on both limb kernels
         for kar in (True, False):
             limb_check(int8_limbs(shape, kar, 75 + i, device), kar,
                        f"{shape} int8 limbs", "karatsuba_matmul_i8")
-            # past int8, and within the plain version's exact float64 range at K = 4096
+            # past int8, and within the plain version's exact float64 range up to
+            # K = 28672 (sums below 2**49)
             a, b, a_lo, b_lo = mm_operands(shape, -(1 << 16), 1 << 16, 78 + i, device)
             limb_check((a, a_lo, b, b_lo), kar, f"{shape} in [-2**16, 2**16)",
                        "karatsuba_matmul")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for i, shape in enumerate(MOE_VLM_EDGE_SHAPES):  # once each: the plain version is costly
+        plan = mm.launch_plan(*shape, sms)
+        a, b, _, _ = mm_operands(shape, -255, 256, 90 + i, device)
+        before = dict(mm.ROUTE_LAUNCHES)
+        got = mm.mitchell_matmul_kernel(a, b)
+        ran = {r: c - before[r] for r, c in mm.ROUTE_LAUNCHES.items() if c != before[r]}
+        if ran != {plan.route: 1}:
+            failures.append(f"mitchell_matmul {shape}: launched {ran}, the plan names "
+                            f"{plan.route}")
+        check_equal(max_err, failures, "mitchell_matmul", got, mm.mitchell_matmul_plain(a, b),
+                    f"{shape} 8-bit operands ({plan})")
+        log(f"[parity] mitchell_matmul {shape}: {plan}, grid {plan.grid(shape[0], shape[2])}")
+        checked += 1
     for i, shape in enumerate(MM_PARITY_SHAPES):     # one pair just past the rule
         for kar, edge in ((True, (64, 64)), (True, (-65, -64)), (False, (128, 0)),
                           (False, (0, -129))):

@@ -62,13 +62,17 @@ def from_reference_model(name: str, input_hw, layers, num_classes: int,
     return with_scales(graph, params, scales, device=device)
 
 
-def _to_tensors(tree, index: int | None, device: torch.device):
+def _to_tensors(tree, index: int | None, device: torch.device, reps: int = 0):
     """The float32 tensors of a dict tree of numpy arrays (entry `index` of
-    each leaf's leading axis when given)."""
+    each leaf's leading axis of `reps` layers when given)."""
     if isinstance(tree, dict):
-        return {k: _to_tensors(v, index, device) for k, v in tree.items()}
+        return {k: _to_tensors(v, index, device, reps) for k, v in tree.items()}
     a = np.asarray(tree, np.float32)
-    return torch.from_numpy(np.array(a if index is None else a[index])).to(device)
+    if index is None:
+        return torch.from_numpy(np.array(a)).to(device)
+    if a.ndim == 0 or a.shape[0] != reps:
+        raise ValueError(f"a stacked leaf of shape {a.shape}: the config gives {reps} layers")
+    return torch.from_numpy(np.array(a[index])).to(device)
 
 
 def from_reference_lm_params(params_np: dict, cfg,
@@ -82,16 +86,18 @@ def from_reference_lm_params(params_np: dict, cfg,
     `jax.vmap` init); "final_ln"; and, for zamba2, "shared_block"}. The
     port keeps one dict per layer, in layer order, whatever the rank of a
     leaf (the mLSTM's (H, Dh, Dh) maps, the sLSTM's recurrent weights, the
-    conv taps), and carries `shared_block` as it is (it is not stacked)."""
-    from repro_torch.models.transformer import check_supported, segment_kinds
-    check_supported(cfg)
+    conv taps, the MoE experts' (E, D, F) stacks, the VLM's 0-d `xgate`),
+    and carries `shared_block` as it is (it is not stacked). Raises
+    ValueError when a leaf is missing, extra or of another shape than the
+    port's own init gives for `cfg`."""
+    from repro_torch.models.transformer import segment_kinds
     dev = resolve_device(device)
     bb = params_np["backbone"]
     segments = segment_kinds(cfg.block_kinds())
     if len(bb["segments"]) != len(segments):
         raise ValueError(f"{len(bb['segments'])} segments, the config has "
                          f"{len(segments)}")
-    layers = [_to_tensors(seg[pi], i, dev)
+    layers = [_to_tensors(seg[pi], i, dev, reps)
               for (pattern, reps), seg in zip(segments, bb["segments"])
               for i in range(reps) for pi in range(len(pattern))]
     out = {k: _to_tensors(v, None, dev) for k, v in params_np.items() if k != "backbone"}
@@ -99,7 +105,41 @@ def from_reference_lm_params(params_np: dict, cfg,
                        "final_ln": _to_tensors(bb["final_ln"], None, dev)}
     if "shared_block" in bb:
         out["backbone"]["shared_block"] = _to_tensors(bb["shared_block"], None, dev)
+    _check_shapes(out, _shapes(_param_shapes(cfg)), "params")
     return out
+
+
+def _param_shapes(cfg) -> dict:
+    """The port's parameter tree for `cfg` with shapes and no storage
+    (tensors of a `FakeTensorMode`): the full-size configs too."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.model import build_model
+    with FakeTensorMode():
+        return build_model(cfg, "cpu").init(torch.Generator("cpu"))
+
+
+def _shapes(tree):
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape)
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return [_shapes(v) for v in tree]
+
+
+def _check_shapes(tree, want, path: str) -> None:
+    if isinstance(want, tuple):
+        if not isinstance(tree, torch.Tensor) or tuple(tree.shape) != want:
+            got = tuple(tree.shape) if isinstance(tree, torch.Tensor) else type(tree).__name__
+            raise ValueError(f"{path}: shape {got}, the config gives {want}")
+        return
+    keys = range(len(want)) if isinstance(want, list) else want.keys()
+    have = range(len(tree)) if isinstance(tree, list) else tree.keys()
+    if set(have) != set(keys):
+        raise ValueError(f"{path}: leaves {sorted(map(str, have))}, the config gives "
+                         f"{sorted(map(str, keys))}")
+    for k in keys:
+        _check_shapes(tree[k], want[k], f"{path}/{k}")
 
 
 __all__ = ["from_reference_lm_params", "from_reference_model", "from_reference_spec"]

@@ -1,12 +1,12 @@
 """`repro_torch.models` -- the LM backbones the serving path runs.
 
-Counterpart of `repro.models` for the dense and audio families (`attn`
-blocks with GQA attention), the hybrid family (zamba2: Mamba2 blocks) and
-the xLSTM family (mLSTM / sLSTM blocks): `layers` (dense, norms, RoPE,
-attention, MLPs), `ssm` (the Mamba2 mixer), `xlstm` (the mLSTM and sLSTM
-blocks), `transformer` (the block stack) and `model` (`build_model`). The
-MoE and VLM families raise `NotImplementedError` at `build_model` (ROADMAP
-Queue 1 item 1).
+Counterpart of `repro.models` for every family of the configs: dense and
+audio (`attn` blocks), MoE (`moe` blocks, MLA or GQA attention), hybrid
+(zamba2: Mamba2 blocks), xLSTM (mLSTM / sLSTM blocks) and the VLM
+(`attn_cross` blocks): `layers` (dense, norms, RoPE, GQA / MLA / cross
+attention, MLPs), `moe` (the routed and shared experts), `ssm` (the Mamba2
+mixer), `xlstm` (the mLSTM and sLSTM blocks), `transformer` (the block
+stack) and `model` (`build_model`).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Core transformer layers: norms, RoPE, GQA attention, MLPs.
+"""Core transformer layers: norms, RoPE, GQA / MLA / cross attention, MLPs.
 
 Counterpart of `repro.models.layers`, on plain PyTorch tensors. Params are
 plain dicts of tensors; initializers draw float32 tensors from a
@@ -13,9 +13,11 @@ the CPU the reference's semantics.
 Attention and norms are the reference's own arithmetic (einsums, its mask
 value, softmax in `scores_dtype`); the reference computes them outside any
 Pallas kernel, so no hand-written kernel stands behind them here either.
-Multi-head latent attention (`mla_attention`) and cross-attention
-(`kv_override`) wait for the MoE and VLM families (ROADMAP Queue 1 item
-1).
+Multi-head latent attention (`mla_attention`, the MoE family's) runs the
+reference's absorbed form: its up-projections `w_uk` / `w_uv` are einsum
+weights, not `dense` calls. Cross-attention (`gqa_attention(...,
+kv_override=...)`, the VLM's) attends to precomputed image keys and
+values, without RoPE, mask or cache.
 
 Conventions:
   x: (B, S, D) activations, in the config's dtype.
@@ -41,7 +43,7 @@ def _randn(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
                scale: float | None = None) -> Params:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": _randn(gen, (d_in, d_out)) * scale}
+    p = {"w": _randn(gen, (d_in, d_out)).mul_(scale)}     # in place: no second copy
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=gen.device)
     return p
@@ -156,23 +158,29 @@ def gqa_init(gen: torch.Generator, cfg) -> Params:
 def gqa_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                   kv_cache: Params | None = None,
                   cache_len: torch.Tensor | None = None,
+                  kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
                   impl: str = "auto") -> tuple[torch.Tensor, Params | None]:
-    """GQA self-attention. Returns (out, new_kv_cache); kv_cache = {"k",
-    "v"}: (B, S_max, Hkv, Dh)."""
+    """GQA self-attention, or cross-attention to kv_override = (k, v) (B,
+    T, Hkv, Dh): no RoPE, no mask, no cache. Returns (out, new_kv_cache);
+    kv_cache = {"k", "v"}: (B, S_max, Hkv, Dh)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     mm = cfg.matmul_method
     q = dense(p["wq"], x, method=mm, impl=impl).reshape(b, s, cfg.num_heads, hd)
-    k = dense(p["wk"], x, method=mm, impl=impl).reshape(b, s, cfg.num_kv_heads, hd)
-    v = dense(p["wv"], x, method=mm, impl=impl).reshape(b, s, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    causal = cfg.causal
+    if kv_override is None:
+        k = dense(p["wk"], x, method=mm, impl=impl).reshape(b, s, cfg.num_kv_heads, hd)
+        v = dense(p["wv"], x, method=mm, impl=impl).reshape(b, s, cfg.num_kv_heads, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        causal = cfg.causal
+    else:
+        k, v = kv_override
+        causal = False
 
     new_cache = None
     q_offset = None
     valid_mask = None
-    if kv_cache is not None:
+    if kv_cache is not None and kv_override is None:
         smax = kv_cache["k"].shape[1]
         window = cfg.sliding_window
         steps = torch.arange(s, device=x.device)[None, :]
@@ -209,6 +217,70 @@ def _scatter_cache(cache: torch.Tensor, new: torch.Tensor,
     return out
 
 
+# ------------------------------------------------------------------- MLA ----
+def mla_init(gen: torch.Generator, cfg) -> Params:
+    d = cfg.d_model
+    qdim = cfg.num_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return {
+        "wq_a": dense_init(gen, d, cfg.q_lora_rank),
+        "q_norm": norm_init(cfg.q_lora_rank, device=gen.device),
+        "wq_b": dense_init(gen, cfg.q_lora_rank, qdim),
+        "wkv_a": dense_init(gen, d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+        "kv_norm": norm_init(cfg.kv_lora_rank, device=gen.device),
+        "wkv_b": dense_init(gen, cfg.kv_lora_rank,
+                            cfg.num_heads * (cfg.qk_nope_dim + cfg.v_head_dim)),
+        "wo": dense_init(gen, cfg.num_heads * cfg.v_head_dim, d),
+    }
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+                  kv_cache: Params | None = None,
+                  cache_len: torch.Tensor | None = None,
+                  impl: str = "auto") -> tuple[torch.Tensor, Params | None]:
+    """Multi-head latent attention (DeepSeek-V2/V3), the reference's
+    absorbed form: W_UK folded into q, scores against the latent c_kv and
+    the shared RoPE key, values in the latent, W_UV applied after. Returns
+    (out, new_cache); kv_cache = {"c_kv" (B, S_max, r), "k_rope" (B, S_max,
+    1, dr)}, in the model dtype. Always causal."""
+    b, s, _ = x.shape
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    mm = cfg.matmul_method
+
+    ql = apply_norm(p["q_norm"], dense(p["wq_a"], x, method=mm, impl=impl), cfg.norm)
+    q = dense(p["wq_b"], ql, method=mm, impl=impl).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = dense(p["wkv_a"], x, method=mm, impl=impl)                 # (B, S, r + dr)
+    c_kv = apply_norm(p["kv_norm"], kv_a[..., :r], cfg.norm)
+    k_rope = apply_rope(kv_a[..., None, r:], positions, cfg.rope_theta)   # (B, S, 1, dr)
+
+    wkv_b = p["wkv_b"]["w"].to(x.dtype).reshape(r, h, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]                      # (r, h, dn), (r, h, dv)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)              # (B, S, h, r)
+
+    new_cache = None
+    q_offset = None
+    if kv_cache is not None:
+        idx = cache_len[:, None] + torch.arange(s, device=x.device)[None, :]
+        c_kv = _scatter_cache(kv_cache["c_kv"][..., None, :], c_kv[..., None, :], idx)[..., 0, :]
+        k_rope = _scatter_cache(kv_cache["k_rope"], k_rope, idx)
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+        q_offset = cache_len
+
+    q_cat = torch.cat([q_lat, q_rope], dim=-1)                         # (B, S, h, r + dr)
+    k_cat = torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)          # (B, Sk, 1, r + dr)
+    # keep the 1/sqrt(dn + dr) of the unabsorbed scores; the factor is
+    # rounded to the model dtype first, as the reference's weakly typed
+    # Python float is (on the host: a device scalar would cost a sync)
+    scale_fix = float(torch.tensor(math.sqrt(r + dr) / math.sqrt(dn + dr), dtype=x.dtype))
+    o_lat = _sdpa(q_cat * scale_fix, k_cat, c_kv[:, :, None, :], causal=True,
+                  q_offset=q_offset, chunk_q=cfg.attn_chunk_q)         # (B, S, h, r)
+    o = torch.einsum("bshr,rhd->bshd", o_lat, w_uv)                    # (B, S, h, dv)
+    return dense(p["wo"], o.reshape(b, s, h * dv), method=mm, impl=impl), new_cache
+
+
 # ------------------------------------------------------------------- MLP ----
 def mlp_init(gen: torch.Generator, cfg, d_ff: int | None = None) -> Params:
     d = cfg.d_model
@@ -233,4 +305,5 @@ def mlp(p: Params, x: torch.Tensor, cfg, *, impl: str = "auto") -> torch.Tensor:
 
 
 __all__ = ["apply_norm", "apply_rope", "dense", "dense_init", "gqa_attention",
-           "gqa_init", "mlp", "mlp_init", "norm_init", "rope_freqs"]
+           "gqa_init", "mla_attention", "mla_init", "mlp", "mlp_init", "norm_init",
+           "rope_freqs"]

@@ -1,22 +1,28 @@
 """Public model API: build_model(cfg, device) -> Model with init / forward /
 init_cache / prefill / decode_step / count_params.
 
-Counterpart of `repro.models.model`, for the block kinds the port runs
-(`transformer.SUPPORTED_KINDS`): the dense, audio, hybrid (zamba2: Mamba2
-blocks) and xLSTM (mLSTM / sLSTM blocks) families. The MoE (MLA) and VLM
-families raise `NotImplementedError` here, at `build_model`.
+Counterpart of `repro.models.model`, for every family of the configs:
+dense, audio, MoE (MLA or GQA attention), hybrid (zamba2: Mamba2 blocks),
+xLSTM (mLSTM / sLSTM blocks) and the VLM (gated cross-attention layers).
 
 Input contract per cfg.input_kind:
-  tokens   batch = {"tokens" (B, S) int}
-  frames   batch = {"frames" (B, S, frame_dim) float} (audio: precomputed
-           frame embeddings; encoder-only, no decode)
+  tokens        batch = {"tokens" (B, S) int}
+  frames        batch = {"frames" (B, S, frame_dim) float} (audio:
+                precomputed frame embeddings; encoder-only, no decode)
+  tokens+image  batch = {"tokens", "image_embeds" (B, image_tokens, D)
+                float}: precomputed patch embeddings, projected by
+                `img_proj` (an exact `dense`) into the cross-attention
+                layers' keys and values. A batch without them raises
+                KeyError, as the reference's does; `decode_step` reads the
+                image keys and values from the caches that `prefill` left.
 
 The model runs on `device` (the CUDA card for None) in the config's dtype.
 Its quantized linears take `impl` ('auto': the Hopper kernels on the card,
 the reference's semantics on the CPU; 'reference' keeps the reference's
 semantics on any device, which on the card runs each kernel's plain
 version for the limb family and the float32-summing LNS route).
-The loss waits for the training slice (ROADMAP Queue 1 item 2).
+`forward` returns the logits and the MoE layers' summed aux loss; the loss
+itself waits for the training slice (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -26,12 +32,7 @@ import torch
 
 from repro_torch.core.platform import resolve_device
 from repro_torch.models.layers import dense, dense_init
-from repro_torch.models.transformer import (
-    backbone_apply,
-    backbone_init,
-    check_supported,
-    init_caches,
-)
+from repro_torch.models.transformer import backbone_apply, backbone_init, init_caches
 
 Params = dict[str, Any]
 
@@ -53,7 +54,9 @@ def _embed_init(gen: torch.Generator, cfg) -> Params:
         p["frame_proj"] = dense_init(gen, cfg.frame_dim, cfg.d_model)
     else:
         p["emb"] = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                               dtype=torch.float32, device=gen.device) * 0.02
+                               dtype=torch.float32, device=gen.device).mul_(0.02)
+    if cfg.input_kind == "tokens+image":
+        p["img_proj"] = dense_init(gen, cfg.d_model, cfg.d_model)
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                scale=1.0 / cfg.d_model**0.5)
@@ -69,19 +72,23 @@ def _leaves(tree) -> list[torch.Tensor]:
 
 def build_model(cfg, device: str | torch.device | None = None, *,
                 impl: str = "auto") -> Model:
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
 
     def as_tensor(a, dt=None) -> torch.Tensor:
         return torch.as_tensor(a).to(dev, dt)
 
-    def embed(params: Params, batch: dict) -> torch.Tensor:
+    def embed(params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """-> (x (B, S, D), the projected image embeddings or None)."""
         if cfg.input_kind == "frames":
-            return dense(params["frame_proj"], as_tensor(batch["frames"], dtype))
+            return dense(params["frame_proj"], as_tensor(batch["frames"], dtype)), None
         # a gather of the float32 table then one cast == the reference's cast
         # of the whole table then a gather
-        return params["emb"][as_tensor(batch["tokens"], torch.long)].to(dtype)
+        x = params["emb"][as_tensor(batch["tokens"], torch.long)].to(dtype)
+        img = None
+        if cfg.input_kind == "tokens+image":
+            img = dense(params["img_proj"], as_tensor(batch["image_embeds"], dtype))
+        return x, img
 
     def logits_of(params: Params, h: torch.Tensor) -> torch.Tensor:
         if cfg.tie_embeddings:
@@ -94,11 +101,12 @@ def build_model(cfg, device: str | torch.device | None = None, *,
         return {**_embed_init(gen, cfg), "backbone": backbone_init(gen, cfg)}
 
     def forward(params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        x = embed(params, batch)
+        """-> (logits (B, S, V), the MoE aux loss, 0 without MoE layers)."""
+        x, img = embed(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
         h, _, aux = backbone_apply(params["backbone"], cfg, x, positions=positions,
-                                   impl=impl)
+                                   image_embeds=img, impl=impl)
         return logits_of(params, h), aux
 
     def init_cache(batch_size: int, s_max: int) -> list:
@@ -106,17 +114,23 @@ def build_model(cfg, device: str | torch.device | None = None, *,
 
     def prefill(params: Params, batch: dict, caches) -> tuple:
         """Returns (last-position logits (B, 1, V), caches, cache_len)."""
-        x = embed(params, batch)
+        x, img = embed(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
         cache_len = torch.zeros((b,), dtype=torch.int32, device=dev)
         h, new_caches, _ = backbone_apply(params["backbone"], cfg, x,
                                           positions=positions, caches=caches,
-                                          cache_len=cache_len, impl=impl)
+                                          cache_len=cache_len, image_embeds=img,
+                                          impl=impl)
         return logits_of(params, h[:, -1:, :]), new_caches, cache_len + s
 
-    def decode_step(params: Params, tokens, caches, cache_len: torch.Tensor) -> tuple:
-        """tokens (B, 1) -> (logits (B, 1, V), caches, cache_len)."""
+    def decode_step(params: Params, tokens, caches, cache_len: torch.Tensor,
+                    image_embeds=None) -> tuple:
+        """tokens (B, 1) -> (logits (B, 1, V), caches, cache_len). The
+        reference's signature: `image_embeds` is accepted and not needed,
+        since the cross-attention layers decode from the image keys and
+        values in their caches (the reference projects it and leaves the
+        projection unused)."""
         if cfg.input_kind == "frames":
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
         tokens = as_tensor(tokens, torch.long)

@@ -8,12 +8,12 @@ one params dict and one cache per layer, in layer order, and loops
 (`repro_torch.convert.from_reference_lm_params` unstacks the reference's
 segments into that list).
 
-Block kinds: the reference has attn | attn_cross | moe | mamba2 |
-mamba2_shared | mlstm | slstm. The port runs `attn` (the dense and audio
-families), `mamba2` / `mamba2_shared` (the hybrid family) and `mlstm` /
-`slstm` (the xLSTM family); `moe`, `attn_cross` and MLA attention raise
-`NotImplementedError` when a model is built (`check_supported`). Every
-block is pre-norm residual.
+Block kinds, all seven of the reference's: `attn` (self-attention, GQA or
+MLA by `cfg.attention`, then the MLP), `moe` (the same attention, then the
+MoE layer), `attn_cross` (self-attention, then cross-attention to the
+image keys and values scaled by tanh(xgate), then the MLP), `mamba2` /
+`mamba2_shared` (the hybrid family), `mlstm` / `slstm` (the xLSTM family).
+Every block is pre-norm residual.
 
 zamba2's weight-shared attention + MLP block (`shared_block`) is built
 whenever `cfg.shared_attn_period` is set, and applied only by the
@@ -27,14 +27,25 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import apply_norm, gqa_attention, gqa_init, mlp, mlp_init, norm_init
+from repro_torch.models.layers import (
+    apply_norm,
+    dense,
+    gqa_attention,
+    gqa_init,
+    mla_attention,
+    mla_init,
+    mlp,
+    mlp_init,
+    norm_init,
+)
 
 Params = dict[str, Any]
 
-#: block kinds the port runs.
-SUPPORTED_KINDS = ("attn", "mamba2", "mamba2_shared", "mlstm", "slstm")
+#: the block kinds with self-attention and an attention cache
+ATTN_KINDS = ("attn", "moe", "attn_cross")
 
 
 def segment_kinds(kinds: list[str], max_pattern: int = 8) -> list[tuple[tuple[str, ...], int]]:
@@ -62,27 +73,22 @@ def segment_kinds(kinds: list[str], max_pattern: int = 8) -> list[tuple[tuple[st
     return segments
 
 
-def check_supported(cfg) -> None:
-    """Raise `NotImplementedError` for a config whose blocks the port does
-    not run yet."""
-    missing = sorted(set(cfg.block_kinds()) - set(SUPPORTED_KINDS))
-    if missing or cfg.attention != "gqa":
-        what = missing or [f"attention={cfg.attention!r}"]
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {what} are not ported yet (ROADMAP Queue 1 "
-            f"item 1: MoE with MLA, then VLM); the port runs {SUPPORTED_KINDS} "
-            f"blocks with GQA attention")
-
-
 # ------------------------------------------------------------ block defs ----
 def _block_init(gen: torch.Generator, kind: str, cfg) -> Params:
-    d = cfg.d_model
-    ln1 = norm_init(d, cfg.norm, device=gen.device)
-    if kind == "attn":
-        p: Params = {"ln1": ln1, "attn": gqa_init(gen, cfg),
-                     "ln2": norm_init(d, cfg.norm, device=gen.device)}
-        if cfg.d_ff:
+    d, dev = cfg.d_model, gen.device
+    ln1 = norm_init(d, cfg.norm, device=dev)
+    if kind in ATTN_KINDS:
+        attn = mla_init(gen, cfg) if cfg.attention == "mla" else gqa_init(gen, cfg)
+        p: Params = {"ln1": ln1, "attn": attn, "ln2": norm_init(d, cfg.norm, device=dev)}
+        if kind == "moe":
+            p["moe"] = moe_lib.moe_init(gen, cfg)
+        elif cfg.d_ff:
             p["mlp"] = mlp_init(gen, cfg)
+        if kind == "attn_cross":
+            p["ln_x"] = norm_init(d, cfg.norm, device=dev)
+            p["xattn"] = gqa_init(gen, cfg)
+            # the reference's zero init: the gate closes the cross path
+            p["xgate"] = torch.zeros((), dtype=torch.float32, device=dev)
         return p
     if kind in ("mamba2", "mamba2_shared"):
         return {"ln1": ln1, "mixer": ssm_lib.mamba2_init(gen, cfg)}
@@ -109,10 +115,18 @@ def _init_cache_for_kind(kind: str, cfg, batch: int, s_max: int, dtype: torch.dt
     def zeros(*shape: int, dt: torch.dtype = torch.float32) -> torch.Tensor:
         return torch.zeros(shape, dtype=dt, device=device)
 
-    if kind == "attn":
+    if kind in ATTN_KINDS:
         hkv, hdd = cfg.num_kv_heads, cfg.resolved_head_dim
-        return {"k": zeros(batch, s_max, hkv, hdd, dt=dtype),
-                "v": zeros(batch, s_max, hkv, hdd, dt=dtype)}
+        if cfg.attention == "mla":
+            cache = {"c_kv": zeros(batch, s_max, cfg.kv_lora_rank, dt=dtype),
+                     "k_rope": zeros(batch, s_max, 1, cfg.qk_rope_dim, dt=dtype)}
+        else:
+            cache = {"k": zeros(batch, s_max, hkv, hdd, dt=dtype),
+                     "v": zeros(batch, s_max, hkv, hdd, dt=dtype)}
+        if kind == "attn_cross":
+            cache["k_img"] = zeros(batch, cfg.image_tokens, hkv, hdd, dt=dtype)
+            cache["v_img"] = zeros(batch, cfg.image_tokens, hkv, hdd, dt=dtype)
+        return cache
     if kind in ("mamba2", "mamba2_shared"):
         d_inner, nheads, hd, n = ssm_lib._dims(cfg)
         cache: Params = {"ssm": zeros(batch, nheads, hd, n),
@@ -137,18 +151,47 @@ def _init_cache_for_kind(kind: str, cfg, batch: int, s_max: int, dtype: torch.dt
 
 def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                  cache: Params | None, cache_len: torch.Tensor | None,
-                 shared_params: Params | None, decode: bool,
-                 impl: str) -> tuple[torch.Tensor, Params | None]:
-    """One residual block. Returns (x, new_cache); new_cache is None when
-    cache is."""
-    if kind == "attn":
+                 shared_params: Params | None, decode: bool, impl: str,
+                 image_embeds: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
+    """One residual block. Returns (x, new_cache, aux); new_cache is None
+    when cache is, aux the MoE layer's loss (None for the other kinds)."""
+    if kind in ATTN_KINDS:
         h = apply_norm(p["ln1"], x, cfg.norm)
-        o, new_cache = gqa_attention(p["attn"], h, cfg, positions=positions,
-                                     kv_cache=cache, cache_len=cache_len, impl=impl)
+        if cfg.attention == "mla":
+            kv = None if cache is None else {k: cache[k] for k in ("c_kv", "k_rope")}
+            o, new_cache = mla_attention(p["attn"], h, cfg, positions=positions,
+                                         kv_cache=kv, cache_len=cache_len, impl=impl)
+        else:
+            kv = None if cache is None else {k: cache[k] for k in ("k", "v")}
+            o, new_cache = gqa_attention(p["attn"], h, cfg, positions=positions,
+                                         kv_cache=kv, cache_len=cache_len, impl=impl)
         x = x + o
-        if cfg.d_ff:
-            x = x + mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg, impl=impl)
-        return x, new_cache
+        if kind == "attn_cross":
+            hx = apply_norm(p["ln_x"], x, cfg.norm)
+            if decode and cache is not None:
+                k_img, v_img = cache["k_img"], cache["v_img"]
+            else:
+                bi, ti = image_embeds.shape[:2]
+                hkv, hdd = cfg.num_kv_heads, cfg.resolved_head_dim
+                mm = cfg.matmul_method
+                k_img = dense(p["xattn"]["wk"], image_embeds, method=mm,
+                              impl=impl).reshape(bi, ti, hkv, hdd)
+                v_img = dense(p["xattn"]["wv"], image_embeds, method=mm,
+                              impl=impl).reshape(bi, ti, hkv, hdd)
+            ox, _ = gqa_attention(p["xattn"], hx, cfg, positions=positions,
+                                  kv_override=(k_img, v_img), impl=impl)
+            x = x + torch.tanh(p["xgate"]).to(x.dtype) * ox
+            if new_cache is not None:
+                new_cache.update(k_img=k_img, v_img=v_img)
+        h2 = apply_norm(p["ln2"], x, cfg.norm)
+        aux = None
+        if kind == "moe":
+            o2, aux = moe_lib.moe_block(p["moe"], h2, cfg, impl=impl)
+            x = x + o2
+        elif cfg.d_ff:
+            x = x + mlp(p["mlp"], h2, cfg, impl=impl)
+        return x, new_cache, aux
 
     if kind in ("mamba2", "mamba2_shared"):
         h = apply_norm(p["ln1"], x, cfg.norm)
@@ -171,25 +214,24 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg, *, positions: torch
             x = x + mlp(sp["mlp"], apply_norm(sp["ln2"], x, cfg.norm), cfg, impl=impl)
             if new_cache is not None:
                 new_cache["shared_kv"] = new_kv
-        return x, new_cache
+        return x, new_cache, None
 
     if kind == "mlstm":
         h = apply_norm(p["ln1"], x, cfg.norm)
         o, new_state = xlstm_lib.mlstm_block_apply(p["mixer"], h, cfg, state=cache,
                                                    decode=decode, impl=impl)
-        return x + o, new_state if cache is not None else None
+        return x + o, new_state if cache is not None else None, None
 
     if kind == "slstm":
         h = apply_norm(p["ln1"], x, cfg.norm)
         o, new_state = xlstm_lib.slstm_apply(p["mixer"], h, cfg, state=cache, impl=impl)
-        return x + o, new_state if cache is not None else None
+        return x + o, new_state if cache is not None else None, None
 
     raise ValueError(kind)
 
 
 # ------------------------------------------------------------- backbone -----
 def backbone_init(gen: torch.Generator, cfg) -> Params:
-    check_supported(cfg)
     params: Params = {"layers": [_block_init(gen, kind, cfg) for kind in cfg.block_kinds()],
                       "final_ln": norm_init(cfg.d_model, cfg.norm, device=gen.device)}
     shared = _shared_block_init(gen, cfg)
@@ -201,30 +243,38 @@ def backbone_init(gen: torch.Generator, cfg) -> Params:
 def init_caches(cfg, batch: int, s_max: int, dtype: torch.dtype,
                 device: torch.device) -> list[Params]:
     """One cache per layer, in layer order: {"k", "v"} (B, s_max, Hkv, Dh)
-    for `attn`; the recurrent states of the other kinds (float32)."""
+    for the attention kinds under GQA, {"c_kv" (B, s_max, r), "k_rope" (B,
+    s_max, 1, dr)} under MLA, `attn_cross` adding {"k_img", "v_img"} (B,
+    image_tokens, Hkv, Dh); the recurrent states of the other kinds
+    (float32)."""
     return [_init_cache_for_kind(kind, cfg, batch, s_max, dtype, device)
             for kind in cfg.block_kinds()]
 
 
 def backbone_apply(params: Params, cfg, x: torch.Tensor, *, positions: torch.Tensor,
                    caches: list | None = None, cache_len: torch.Tensor | None = None,
-                   decode: bool = False,
+                   image_embeds: torch.Tensor | None = None, decode: bool = False,
                    impl: str = "auto") -> tuple[torch.Tensor, list | None, torch.Tensor]:
-    """x: (B, S, D) -> (y, new_caches, aux_loss_sum); the aux loss is the
-    MoE family's and 0 here. `decode` selects the recurrent kinds' O(1)
-    step (the `attn` blocks read the cache either way)."""
+    """x: (B, S, D) -> (y, new_caches, aux_loss_sum): the MoE layers' aux
+    losses summed (float32, 0 without MoE layers). `image_embeds` (B, T,
+    D), projected, feed the `attn_cross` layers' keys and values, except at
+    decode, which reads them from the caches. `decode` selects the
+    recurrent kinds' O(1) step (the attention kinds read their caches
+    either way)."""
     shared = params.get("shared_block")
     new_caches: list | None = [] if caches is not None else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, layer) in enumerate(zip(cfg.block_kinds(), params["layers"])):
-        x, nc = _apply_block(kind, layer, x, cfg, positions=positions,
-                             cache=caches[i] if caches is not None else None,
-                             cache_len=cache_len, shared_params=shared, decode=decode,
-                             impl=impl)
+        x, nc, aux = _apply_block(kind, layer, x, cfg, positions=positions,
+                                  cache=caches[i] if caches is not None else None,
+                                  cache_len=cache_len, shared_params=shared,
+                                  image_embeds=image_embeds, decode=decode, impl=impl)
+        if aux is not None:
+            aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
     x = apply_norm(params["final_ln"], x, cfg.norm)
-    return x, new_caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_caches, aux_total
 
 
-__all__ = ["SUPPORTED_KINDS", "backbone_apply", "backbone_init", "check_supported",
-           "init_caches", "segment_kinds"]
+__all__ = ["backbone_apply", "backbone_init", "init_caches", "segment_kinds"]

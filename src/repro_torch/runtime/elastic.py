@@ -18,7 +18,7 @@ device, so an injector rule `on_key(SITE_SHARD, "dev3")` models device 3
 dying, to the filter traffic and to these probes alike.
 
 The training half (`remesh_restore`, `state_shardings`) waits for the
-port's checkpoint and sharding modules (ROADMAP Queue 1 item 10).
+port's checkpoint and sharding modules (ROADMAP Queue 1 item 2, training).
 """
 from __future__ import annotations
 

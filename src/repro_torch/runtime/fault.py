@@ -6,7 +6,7 @@ sites, the `FaultInjector` rules (`at_call`, `every`, `on_key`,
 `at_index`, `poison`), `fault_scope`, `probe` and `InjectedFault`, copied
 with the decisions kept the same. The reference module's training-loop
 pieces (`run_training`, `StragglerMonitor` and the step-fault API) wait
-for the port's training scaffolding (ROADMAP Queue 1 item 10).
+for the port's training scaffolding (ROADMAP Queue 1 item 2, training).
 
 Instrumented code calls the module-level `probe(site, ...)` at well-known
 sites; a probe is a no-op unless a `fault_scope(injector)` is active, so

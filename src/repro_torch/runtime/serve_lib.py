@@ -18,8 +18,9 @@ def make_prefill_step(model) -> Callable:
 
 
 def make_decode_step(model) -> Callable:
-    def decode_step(params, tokens, caches, cache_len):
-        return model.decode_step(params, tokens, caches, cache_len)
+    def decode_step(params, tokens, caches, cache_len, image_embeds=None):
+        return model.decode_step(params, tokens, caches, cache_len,
+                                 image_embeds=image_embeds)
     return decode_step
 
 

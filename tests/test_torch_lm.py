@@ -29,6 +29,18 @@ Tolerances, and why:
     test's rtol 1e-3 / atol 2e-4 (`exact`, as there; a quantized method
     quantizes each call with its own absmax, so a one-token decode and a
     whole-sequence forward quantize differently in both packages).
+  * The MoE (deepseek-v3 with MLA, kimi-k2 with GQA) and VLM
+    (llama-3.2-vision) families hold the same tolerances, and the MoE aux
+    loss rtol 1e-6 (float32 means, summed in each library's order; under a
+    quantized method the method's QUANT_TOL, relative: the router reads
+    the quantized layers' activations, and its gates move with them). The
+    VLM's params have `xgate` set to 0.5 in both packages (the reference's
+    zero init would erase the cross-attention) and its batches carry
+    seeded `image_embeds`; its greedy tokens are a prefill with the image
+    and decode steps in both packages, since `greedy_generate` cannot give
+    it an image in either (ROADMAP Queue 3, R8). Prefill then decode
+    against the full forward runs MoE at capacity_factor 100, as the
+    reference's own test does: token drops depend on the chunking.
   * The hybrid (zamba2) and xLSTM families hold the same tolerances. Their
     scans exponentiate cumulative sums (SSD: exp of cumsum(dt * A); mLSTM:
     exp of i - cumsum(log_sigmoid f) - cummax), which multiplies a last-bit
@@ -43,6 +55,7 @@ Tolerances, and why:
     states, carried across layer by layer.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -67,23 +80,45 @@ from repro_torch.runtime.serve_lib import greedy_generate, make_serve_step
 torch.set_num_threads(1)
 
 RUN_ARCHS = ("qwen2-0.5b", "qwen2.5-3b", "granite-3-2b", "nemotron-4-340b",
-             "hubert-xlarge", "zamba2-1.2b", "xlstm-1.3b")
+             "hubert-xlarge", "zamba2-1.2b", "xlstm-1.3b", "deepseek-v3-671b",
+             "kimi-k2-1t-a32b", "llama-3.2-vision-90b")
 #: the families with recurrent block kinds (mamba2; mlstm / slstm)
 RECURRENT_ARCHS = ("zamba2-1.2b", "xlstm-1.3b")
-UNPORTED_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b", "llama-3.2-vision-90b")
+MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
+VLM_ARCH = "llama-3.2-vision-90b"
+#: the cross-attention gate of the VLM's params in both packages
+XGATE = 0.5
 LM_METHODS = ("exact", "mitchell", "karatsuba_int16")
 #: max |port - reference| / max |reference| of the forward logits
 QUANT_TOL = {"mitchell": 5e-2, "karatsuba_int16": 5e-3}
 GREEDY = dict(batch=4, prompt=16, steps=8)
 
 
+def open_gates(params):
+    """The reference's params with every `xgate` (the VLM's cross-attention
+    gates, zero at init) set to XGATE."""
+    def gate(path, leaf):
+        return jnp.full_like(leaf, XGATE) if path[-1] == jax.tree_util.DictKey("xgate") else leaf
+    return jax.tree_util.tree_map_with_path(gate, params)
+
+
+@functools.lru_cache(maxsize=None)
+def ref_init(arch: str):
+    """The reference's params of the reduced `arch` at PRNGKey(0), the VLM's
+    gates open (XGATE); immutable JAX arrays, drawn once a process (the
+    matmul method does not enter the init)."""
+    return open_gates(ref_build_model(ref_get_config(arch).reduced()).init(
+        jax.random.PRNGKey(0)))
+
+
 def both_models(arch: str, method: str = "exact"):
     """(reference model, its params, port model, port params) for the
-    reduced config of `arch` with `matmul_method=method`."""
+    reduced config of `arch` with `matmul_method=method`; the VLM's gates
+    open (XGATE)."""
     ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(), matmul_method=method)
     cfg = dataclasses.replace(get_config(arch).reduced(), matmul_method=method)
     ref_model = ref_build_model(ref_cfg)
-    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    ref_params = ref_init(arch)
     model = build_model(cfg, "cpu")
     params = from_reference_lm_params(jax.tree.map(np.asarray, ref_params), cfg, "cpu")
     return ref_model, ref_params, model, params
@@ -93,7 +128,15 @@ def lm_batch(cfg, b: int, s: int, seed: int = 1) -> dict:
     rng = np.random.default_rng(seed)
     if cfg.input_kind == "frames":
         return {"frames": rng.standard_normal((b, s, cfg.frame_dim)).astype(np.float32)}
-    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.input_kind == "tokens+image":
+        batch["image_embeds"] = rng.standard_normal(
+            (b, cfg.image_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def jax_batch(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
 def prompt_of(cfg) -> np.ndarray:
@@ -155,32 +198,45 @@ def test_forward_matches_the_reference(arch, method):
     ref_model, ref_params, model, params = both_models(arch, method)
     assert model.count_params(params) == ref_model.count_params(ref_params)
     batch = lm_batch(model.cfg, 2, 16)
-    want, _ = ref_model.forward(ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    want, want_aux = ref_model.forward(ref_params, jax_batch(batch))
     got, aux = model.forward(params, batch)
     want = np.asarray(want)
-    assert got.shape == want.shape and float(aux) == 0.0
+    assert got.shape == want.shape and aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == (not model.cfg.moe)
     if method == "exact":
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
     else:
         err = np.abs(got.numpy() - want).max() / np.abs(want).max()
         assert err <= QUANT_TOL[method], (arch, method, err)
+        aux_err = abs(float(aux) - float(want_aux)) / max(abs(float(want_aux)), 1e-30)
+        assert float(aux) == float(want_aux) == 0.0 or aux_err <= QUANT_TOL[method], aux_err
 
 
 @pytest.mark.parametrize("arch", [a for a in RUN_ARCHS if get_config(a).causal])
 def test_prefill_then_decode_matches_full_forward(arch):
-    """The reference's own check (tests/test_models_smoke.py), on the port."""
-    model = build_model(get_config(arch).reduced(), "cpu")
+    """The reference's own check (tests/test_models_smoke.py), on the port:
+    MoE at capacity_factor 100 (drops depend on the chunking), the VLM
+    with its image and open gates."""
+    cfg = get_config(arch).reduced()
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=100.0)
+    model = build_model(cfg, "cpu")
     params = model.init(torch.Generator("cpu").manual_seed(0))
+    for layer in params["backbone"]["layers"]:
+        if "xgate" in layer:
+            layer["xgate"] = torch.tensor(XGATE)
     b, s = 2, 16
     batch = lm_batch(model.cfg, b, s)
     full, _ = model.forward(params, batch)
     caches = model.init_cache(b, 32)
-    lg_pre, caches, clen = model.prefill(params, {"tokens": batch["tokens"][:, :s - 1]},
+    lg_pre, caches, clen = model.prefill(params, {**batch, "tokens": batch["tokens"][:, :s - 1]},
                                          caches)
     np.testing.assert_allclose(lg_pre[:, 0].numpy(), full[:, s - 2].numpy(),
                                rtol=1e-3, atol=2e-4)
     lg_dec, caches, clen = model.decode_step(params, batch["tokens"][:, s - 1:s],
-                                             caches, clen)
+                                             caches, clen,
+                                             image_embeds=batch.get("image_embeds"))
     np.testing.assert_allclose(lg_dec[:, 0].numpy(), full[:, s - 1].numpy(),
                                rtol=1e-3, atol=2e-4)
     assert clen.tolist() == [s] * b
@@ -188,15 +244,56 @@ def test_prefill_then_decode_matches_full_forward(arch):
 
 # ----------------------------------------------------------------- decode
 
+def image_of(cfg) -> np.ndarray | None:
+    """The seeded image of the greedy runs (None unless the VLM)."""
+    if cfg.input_kind != "tokens+image":
+        return None
+    return np.random.default_rng(2).standard_normal(
+        (GREEDY["batch"], cfg.image_tokens, cfg.d_model)).astype(np.float32)
+
+
+def ref_greedy(ref_model, ref_params, prompt, image, s_max: int) -> np.ndarray:
+    """The reference's greedy tokens: its `greedy_generate`, or for the VLM
+    the same loop with the image in the prefill batch (which
+    `greedy_generate` cannot give it, R8)."""
+    if image is None:
+        return np.array(ref_greedy_generate(ref_model, ref_params, jnp.asarray(prompt),
+                                            steps=GREEDY["steps"], s_max=s_max))
+    caches = ref_model.init_cache(prompt.shape[0], s_max)
+    logits, caches, clen = ref_model.prefill(
+        ref_params, {"tokens": jnp.asarray(prompt), "image_embeds": jnp.asarray(image)}, caches)
+    outs = []
+    for _ in range(GREEDY["steps"]):
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+        outs.append(np.asarray(tok))
+        logits, caches, clen = ref_model.decode_step(ref_params, tok, caches, clen)
+    return np.concatenate(outs, axis=1)
+
+
+def port_greedy(model, params, prompt, image, s_max: int) -> torch.Tensor:
+    """The port's greedy tokens, as `ref_greedy` takes them."""
+    if image is None:
+        return greedy_generate(model, params, prompt, steps=GREEDY["steps"], s_max=s_max)
+    caches = model.init_cache(prompt.shape[0], s_max)
+    logits, caches, clen = model.prefill(params, {"tokens": prompt, "image_embeds": image},
+                                         caches)
+    outs = []
+    for _ in range(GREEDY["steps"]):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        outs.append(tok)
+        logits, caches, clen = model.decode_step(params, tok, caches, clen,
+                                                 image_embeds=image)
+    return torch.cat(outs, dim=1)
+
+
 def check_greedy_tokens(arch: str, method: str) -> None:
     ref_model, ref_params, model, params = both_models(arch, method)
-    prompt = prompt_of(model.cfg)
+    prompt, image = prompt_of(model.cfg), image_of(model.cfg)
     s_max = GREEDY["prompt"] + GREEDY["steps"]
-    want = ref_greedy_generate(ref_model, ref_params, jnp.asarray(prompt),
-                               steps=GREEDY["steps"], s_max=s_max)
-    got = greedy_generate(model, params, prompt, steps=GREEDY["steps"], s_max=s_max)
+    want = ref_greedy(ref_model, ref_params, prompt, image, s_max)
+    got = port_greedy(model, params, prompt, image, s_max)
     assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("method", ("exact", "karatsuba_int16"))
@@ -210,17 +307,23 @@ def test_recurrent_family_greedy_tokens_equal_the_reference(arch, method):
     check_greedy_tokens(arch, method)
 
 
+@pytest.mark.parametrize("method", ("exact", "karatsuba_int16"))
+@pytest.mark.parametrize("arch", MOE_ARCHS + (VLM_ARCH,))
+def test_moe_and_vlm_greedy_tokens_equal_the_reference(arch, method):
+    check_greedy_tokens(arch, method)
+
+
 def check_mitchell_teacher_forced(arch: str) -> None:
     """The reference's mitchell greedy tokens, fed to the port step by step:
     at every step the reference's token scores within the LNS tolerance of
     the port's largest logit, and most steps agree exactly."""
     ref_model, ref_params, model, params = both_models(arch, "mitchell")
-    prompt = prompt_of(model.cfg)
+    prompt, image = prompt_of(model.cfg), image_of(model.cfg)
     s_max = GREEDY["prompt"] + GREEDY["steps"]
-    want = np.array(ref_greedy_generate(ref_model, ref_params, jnp.asarray(prompt),
-                                        steps=GREEDY["steps"], s_max=s_max))
+    want = ref_greedy(ref_model, ref_params, prompt, image, s_max)
     caches = model.init_cache(prompt.shape[0], s_max)
-    logits, caches, clen = model.prefill(params, {"tokens": prompt}, caches)
+    batch = {"tokens": prompt} if image is None else {"tokens": prompt, "image_embeds": image}
+    logits, caches, clen = model.prefill(params, batch, caches)
     agree = 0
     for step in range(GREEDY["steps"]):
         lg = logits[:, -1]
@@ -243,6 +346,11 @@ def test_recurrent_family_mitchell_greedy_tokens_within_tolerance(arch):
     check_mitchell_teacher_forced(arch)
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS + (VLM_ARCH,))
+def test_moe_and_vlm_mitchell_greedy_tokens_within_tolerance(arch):
+    check_mitchell_teacher_forced(arch)
+
+
 def test_serve_step_matches_the_reference():
     ref_model, ref_params, model, params = both_models("qwen2-0.5b")
     seq_len, b = 12, 2
@@ -260,16 +368,16 @@ def test_serve_step_matches_the_reference():
     assert len(new_caches) == model.cfg.num_layers
 
 
-@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
-def test_recurrent_family_serve_step_matches_the_reference(arch):
-    """One decode step from the recurrent states the reference's prefill
-    left: logits and every new state leaf against the reference's."""
+def check_serve_step_from_reference_prefill(arch: str) -> None:
+    """One decode step from the caches the reference's prefill left (the
+    VLM's with its image): logits and every new cache leaf against the
+    reference's."""
     ref_model, ref_params, model, params = both_models(arch)
     seq_len, b = 12, 2
     rng = np.random.default_rng(5)
-    prompt = rng.integers(0, model.cfg.vocab_size, (b, seq_len - 1)).astype(np.int32)
+    batch = lm_batch(model.cfg, b, seq_len - 1, seed=5)
     tokens = rng.integers(0, model.cfg.vocab_size, (b, 1)).astype(np.int32)
-    _, ref_caches, _ = ref_model.prefill(ref_params, {"tokens": jnp.asarray(prompt)},
+    _, ref_caches, _ = ref_model.prefill(ref_params, jax_batch(batch),
                                          ref_model.init_cache(b, seq_len))
     caches = port_caches(ref_caches, model.cfg)
     want, want_caches = ref_make_serve_step(ref_model, seq_len=seq_len)(
@@ -286,12 +394,85 @@ def test_recurrent_family_serve_step_matches_the_reference(arch):
                                        rtol=1e-4, atol=1e-5, err_msg=f"{layer} {name}")
 
 
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_family_serve_step_matches_the_reference(arch):
+    check_serve_step_from_reference_prefill(arch)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS + (VLM_ARCH,))
+def test_moe_and_vlm_serve_step_matches_the_reference(arch):
+    check_serve_step_from_reference_prefill(arch)
+
+
+# ------------------------------------------------------------ converter
+
+@pytest.mark.parametrize("arch", MOE_ARCHS + (VLM_ARCH,))
+def test_from_reference_lm_params_carries_every_leaf(arch):
+    """Every leaf of the reference's stacked pytree lands in its layer's
+    dict with the reference's values: the router, the (E, D, F) expert
+    stacks, the shared MLP, the MLA projections and norms, `img_proj` and
+    each layer's 0-d `xgate`; the parameter counts agree."""
+    from repro_torch.models.transformer import segment_kinds
+    ref_model, ref_params, model, params = both_models(arch)
+    assert model.count_params(params) == ref_model.count_params(ref_params)
+    ref_np = jax.tree.map(np.asarray, ref_params)
+    want_layers = [jax.tree.map(lambda a, i=i: a[i], seg[pi])
+                   for (pattern, reps), seg in zip(segment_kinds(model.cfg.block_kinds()),
+                                                   ref_np["backbone"]["segments"])
+                   for i in range(reps) for pi in range(len(pattern))]
+    want = {**{k: v for k, v in ref_np.items() if k != "backbone"},
+            "backbone": {"layers": want_layers, "final_ln": ref_np["backbone"]["final_ln"]}}
+    got_leaves = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), params))[0]
+    want_leaves = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
+    names = {jax.tree_util.keystr(p) for p, _ in got_leaves}
+    if model.cfg.moe:
+        assert any("['router']" in n for n in names) and any("['shared']" in n for n in names)
+    if model.cfg.attention == "mla":
+        assert any("['wkv_b']" in n for n in names)
+    if model.cfg.input_kind == "tokens+image":
+        gates = [layer["xgate"] for layer in params["backbone"]["layers"] if "xgate" in layer]
+        assert gates and all(g.dim() == 0 and float(g) == XGATE for g in gates)
+        assert "['img_proj']['w']" in names
+
+
+@pytest.mark.parametrize("arch,leaf,cut", [
+    ("deepseek-v3-671b", ("moe", "wi"), lambda a: a[:, :-1]),           # an expert short
+    ("kimi-k2-1t-a32b", ("moe", "router", "w"), lambda a: a[..., :-1]),
+    ("llama-3.2-vision-90b", ("xgate",), lambda a: a[:, None]),         # (1,) a layer
+    ("llama-3.2-vision-90b", ("xattn", "wk", "w"), lambda a: a[:-1]),   # a layer short
+])
+def test_from_reference_lm_params_refuses_a_wrong_shape(arch, leaf, cut):
+    from repro_torch.models.transformer import segment_kinds
+    cfg = get_config(arch).reduced()
+    ref_params = jax.tree.map(np.asarray, ref_build_model(
+        ref_get_config(arch).reduced()).init(jax.random.PRNGKey(0)))
+    seg, pos = next((si, pi) for si, (pattern, _) in enumerate(segment_kinds(cfg.block_kinds()))
+                    for pi, kind in enumerate(pattern) if kind in ("moe", "attn_cross"))
+    node = ref_params["backbone"]["segments"][seg][pos]
+    for key in leaf[:-1]:
+        node = node[key]
+    node[leaf[-1]] = cut(node[leaf[-1]])
+    with pytest.raises(ValueError, match="the config gives"):
+        from_reference_lm_params(ref_params, cfg, "cpu")
+
+
 # ------------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_unported_block_kinds_raise_at_build_model(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1: MoE"):
-        build_model(get_config(arch).reduced(), "cpu")
+def test_vlm_greedy_generate_raises_key_error_in_both_packages():
+    """R8: `greedy_generate` prefills with the tokens alone, so neither
+    package's can serve the VLM (`image_embeds` missing), nor the CLI."""
+    ref_model, ref_params, model, params = both_models(VLM_ARCH)
+    prompt = prompt_of(model.cfg)
+    with pytest.raises(KeyError, match="image_embeds"):
+        ref_greedy_generate(ref_model, ref_params, jnp.asarray(prompt), steps=2, s_max=20)
+    with pytest.raises(KeyError, match="image_embeds"):
+        greedy_generate(model, params, prompt, steps=2, s_max=20)
+    with pytest.raises(KeyError, match="image_embeds"):
+        serve_cli.main(["--arch", VLM_ARCH, "--device", "cpu", "--gen-len", "2"])
 
 
 def test_encoder_only_model_has_no_decode_step():
@@ -320,9 +501,18 @@ def test_serve_cli_runs_on_the_cpu_at_its_defaults(capsys):
     assert "generated (4, 32) tokens" in printed and "sample token ids" in printed
 
 
-@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
-def test_serve_cli_runs_the_recurrent_families_on_the_cpu(arch, capsys):
+def check_serve_cli(arch: str, capsys) -> None:
     out = serve_cli.main(["--arch", arch, "--device", "cpu", "--gen-len", "8"])
     assert tuple(out.shape) == (4, 8) and out.dtype == torch.int32
     assert int(out.min()) >= 0 and int(out.max()) < get_config(arch).reduced().vocab_size
     assert "generated (4, 8) tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_serve_cli_runs_the_recurrent_families_on_the_cpu(arch, capsys):
+    check_serve_cli(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_cli_runs_the_moe_family_on_the_cpu(arch, capsys):
+    check_serve_cli(arch, capsys)

@@ -290,7 +290,7 @@ def test_mamba2_shared_block_matches_the_reference():
             "mamba2_shared", ref_p, jnp.asarray(x[:, lo:hi]), ref_cfg,
             positions=jnp.asarray(pos), cache=rcache, cache_len=jnp.asarray(clen),
             shared_params=ref_shared, image_embeds=None, decode=decode)
-        got, cache = transformer._apply_block(
+        got, cache, _ = transformer._apply_block(
             "mamba2_shared", p, torch.from_numpy(x[:, lo:hi]), cfg,
             positions=torch.from_numpy(pos.copy()), cache=cache,
             cache_len=torch.from_numpy(clen), shared_params=shared, decode=decode,
@@ -309,7 +309,7 @@ def test_mamba2_shared_block_runs_without_a_cache():
                                      positions=jnp.asarray(pos), cache=None, cache_len=None,
                                      shared_params=ref_shared, image_embeds=None,
                                      decode=False)
-    got, new_cache = transformer._apply_block(
+    got, new_cache, _ = transformer._apply_block(
         "mamba2_shared", to_torch(ref_p), torch.from_numpy(x), cfg,
         positions=torch.from_numpy(pos.copy()), cache=None, cache_len=None,
         shared_params=to_torch(ref_shared), decode=False, impl="auto")
