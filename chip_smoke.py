@@ -144,7 +144,27 @@ Phases, each fatal on failure:
                step (the CUDA sync debug mode), peak memory, the device busy
                share and `mitchell_matmul`'s device ms in one mitchell decode
                step beside its bound;
- 16. times  -- each kernel with CUDA events (median after warm-up) beside
+ 16. train  -- LM training: Qwen2-0.5B at full width (bf16 over float32
+               master weights, remat, AdamW). First a 2-layer parity step
+               (batch 2 x seq 64): every `mitchell_matmul` call of the
+               forward and the remat recompute (28) equal to its plain
+               version, and karatsuba_int16's loss and grads on the kernels
+               against the plain route (`impl='reference'`): byte-equal,
+               or a leaf that differs also differs between two plain runs
+               (a non-deterministic CUDA op, named on the line). Then 4
+               steps at full depth, batch 8 x seq 128 (the reference
+               training CLI's), through `run_training` under exact,
+               mitchell and karatsuba_int16: [train] lines with the loss by
+               step, step ms (median of steps 2-4), tokens/s, launches
+               (asserted: 336 a quantized step, forward + recompute) and
+               host syncs a step, the device busy share, peak memory and
+               `mitchell_matmul`'s device ms a step beside its bound
+               (481.9 ms at 11 INT32 operations a product); one batch
+               overfitted at 2 layers (exact, lr 1e-3, 10 steps: the loss
+               below 0.9x its first); a fault injected at step 3 and a
+               restart from the step-2 checkpoint against a clean run, with
+               one checkpoint's save and restore ms;
+ 17. times  -- each kernel with CUDA events (median after warm-up) beside
                its plain version, its bound and, where PyTorch has one call
                that computes the same sums, that call; the matmul kernels at
                the full-width shape; `conv_pass_kcm`'s measurement variants
@@ -160,8 +180,15 @@ Phases, each fatal on failure:
                prefill (M = 128) shapes beside their bounds, summed to the ms
                of each LM's decode step; [route] lines: both routes at (M, 896, 4864)
                for M = 4 .. 2048, the timings behind the plan's route cut;
+               both matmul kernels at the train step's shapes (M = 1024)
+               and `mitchell_matmul` at the VLM's tiled image projection
+               (6400 x 8192 x 1024), [train] lines;
 The line before the last is a JSON object naming the seven kernels with
-their numbers (and `serve_launches`, their launches in phase 13; for the
+their numbers (and `serve_launches`, their launches in phase 13;
+`train_launches`, their launches in phase 16's twelve full-width steps,
+with `train_step_ms`, `train_step_bound_ms` and `train_step_device_ms`
+for `mitchell_matmul`, a step's calls summed at their shapes, the bound
+and the profiler's reading; for the
 matmul kernels `lm_launches`, their launches in phase 15's eighteen
 greedy runs (six LMs x three methods), and for
 `mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 16's
@@ -1720,6 +1747,392 @@ def phase_lm(device: torch.device, max_err: dict,
     return lm_launches, step_ms
 
 
+# ----------------------------------------------------------------- [train] --
+# LM training on one card: Qwen2-0.5B at full width (24 attn layers, d_model
+# 896, vocab 151936, bf16 over float32 master weights, remat on, AdamW) at the
+# reference training CLI's defaults (src/repro/launch/train.py: batch 8, seq
+# 128), a few steps a method through `run_training`.
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SHAPE = (8, 128)              # batch, seq
+TRAIN_STEPS = 4
+TRAIN_TIMED = slice(1, TRAIN_STEPS)  # steps 2-4: the first builds and warms
+TRAIN_PARITY_SHAPE = (2, 64)
+TRAIN_CUT_LAYERS = 2                # the parity, overfit and fault runs' depth
+TRAIN_OVERFIT = dict(steps=10, peak_lr=1e-3, warmup=2, total_steps=30)
+# lr at its peak from step 2 on, so a restart that restored the optimizer
+# state wrongly moves the steps after it well past rounding
+TRAIN_FAULT = dict(steps=4, ckpt_every=2, fail_at=3,
+                   lr=dict(peak_lr=1e-3, warmup=2, total_steps=30))
+
+
+def train_dense_calls(cfg) -> int:
+    """Quantized `dense` calls of one train step: the forward's, and as many
+    again in the remat recompute (the integer products carry no gradient,
+    so the backward launches none)."""
+    return prefill_calls(cfg) * (2 if cfg.remat else 1)
+
+
+def train_step_bound(int32_ops_per_s: float) -> float:
+    """Least ms of `mitchell_matmul`'s calls in one Qwen2-0.5B train step:
+    M = batch x seq rows against each (K, N), forward and recompute."""
+    m = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    return 2 * sum(mitchell_bound((m, k, n), int32_ops_per_s)[0] * per_step
+                   for (k, n), per_step in LM_DENSE[TRAIN_ARCH])
+
+
+def train_cut(method: str = "exact"):
+    """TRAIN_ARCH at TRAIN_CUT_LAYERS layers, full width, `method`."""
+    import dataclasses
+    return dataclasses.replace(lm_config(TRAIN_ARCH), num_layers=TRAIN_CUT_LAYERS,
+                               matmul_method=method)
+
+
+def leaf_grads(model, params, batch) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(loss, {path: grad}) of `model.loss_fn`, a None grad as zeros."""
+    from repro_torch.optim import param_groups
+    from repro_torch.runtime.train_lib import grads_of
+    pairs = [(f"{g.key}/{i}", t) for g in param_groups(params, model.cfg)
+             for i, t in enumerate(g.params)]
+    loss, _, grads = grads_of(model, params, batch, [t for _, t in pairs])
+    return loss, {k: g for (k, _), g in zip(pairs, grads)}
+
+
+def phase_train_parity(device: torch.device, max_err: dict) -> None:
+    """At TRAIN_CUT_LAYERS layers, full width, batch 2 x seq 64: one mitchell
+    train step with every `mitchell_matmul` call (forward and remat
+    recompute) held against `mitchell_matmul_plain`; karatsuba_int16's loss
+    and grads on the kernels against the plain route (`impl='reference'`):
+    byte-equal, or, for a leaf that differs, two plain runs differ there too
+    (a non-deterministic CUDA op in the backward, named on the line)."""
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train_lib import make_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    batch = lm_batch(train_cut(), batch=TRAIN_PARITY_SHAPE[0], seq=TRAIN_PARITY_SHAPE[1])
+    lns = train_cut("mitchell")
+    model = build_model(lns)
+    state = make_train_state(model, torch.Generator(device).manual_seed(1))
+    stats = {"calls": 0, "max_err": 0}
+    with checked_mitchell(stats):
+        state, metrics = make_train_step(model)(state, batch)
+    max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
+    assert stats["calls"] == train_dense_calls(lns) and stats["max_err"] == 0, stats
+    assert bool(torch.isfinite(metrics["loss"])), metrics
+    log(f"[train] parity, {TRAIN_ARCH} {TRAIN_CUT_LAYERS} layers full width, batch "
+        f"{TRAIN_PARITY_SHAPE[0]} x seq {TRAIN_PARITY_SHAPE[1]}, remat: mitchell_matmul == "
+        f"mitchell_matmul_plain on all {stats['calls']} calls of a train step (forward + "
+        f"recompute; max |err| {stats['max_err']}); loss {float(metrics['loss']):.6f}")
+    del model, state
+    lim = train_cut("karatsuba_int16")
+    params = make_train_state(build_model(lim), torch.Generator(device).manual_seed(1)).params
+    got = leaf_grads(build_model(lim), params, batch)
+    plain = leaf_grads(build_model(lim, impl="reference"), params, batch)
+    assert torch.equal(got[0], plain[0]), (float(got[0]), float(plain[0]))
+    differ = [k for k in plain[1] if not torch.equal(got[1][k], plain[1][k])]
+    unstable = []
+    if differ:                       # does the plain route itself vary there?
+        plain2 = leaf_grads(build_model(lim, impl="reference"), params, batch)
+        unstable = [k for k in plain[1] if not torch.equal(plain[1][k], plain2[1][k])]
+    assert set(differ) <= set(unstable), f"kernel grads differ where the plain route is stable: " \
+                                         f"{sorted(set(differ) - set(unstable))[:6]}"
+    gap = max((float((got[1][k] - plain[1][k]).abs().max()) for k in differ), default=0.0)
+    log(f"[train] parity: karatsuba_int16 loss on the kernels byte-equal to the plain route "
+        f"(impl='reference', {float(got[0]):.6f}); grads of {len(plain[1]) - len(differ)} of "
+        f"{len(plain[1])} leaves byte-equal"
+        + (f"; {differ} differ by at most {gap:.6g}, and two plain runs differ there too "
+           f"({unstable}: an op of their backward sums in a run-dependent order)"
+           if differ else "")
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_train_method(method: str, device: torch.device,
+                       int32_ops_per_s: float) -> tuple[dict[str, int], float | None]:
+    """TRAIN_ARCH at full width and depth, `method`: TRAIN_STEPS steps of
+    batch 8 x seq 128 through `run_training` (no checkpoint falls in them),
+    then one step under the CUDA sync debug mode and one under
+    torch.profiler. -> (the matmul kernels' launches in the run_training
+    steps, mitchell_matmul's device ms in the profiled step or None)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.fault import StragglerMonitor, run_training
+    from repro_torch.runtime.train_lib import make_train_state, make_train_step
+
+    cfg = dataclasses.replace(lm_config(TRAIN_ARCH), matmul_method=method)
+    model = build_model(cfg)
+    step = make_train_step(model)
+    batch_of = lambda s: lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1], step=s)  # noqa: E731
+    monitor, losses = StragglerMonitor(), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        reset_matmul_launches()
+        state = run_training(
+            train_step=step, init_state=lambda: make_train_state(
+                model, torch.Generator(device).manual_seed(0)),
+            batch_fn=batch_of, num_steps=TRAIN_STEPS,
+            ckpt=CheckpointManager(ckpt_dir, interval=10 * TRAIN_STEPS),
+            straggler=monitor, on_metrics=lambda s, m: losses.append(m["loss"]))
+        launches = matmul_launches()
+    losses = [float(x) for x in losses]
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    per_step = train_dense_calls(cfg)
+    kernel = {"mitchell": "mitchell_matmul", "karatsuba_int16": "karatsuba_matmul_i8"}.get(method)
+    want = {kernel: TRAIN_STEPS * per_step} if kernel else {}
+    assert {k: v for k, v in launches.items() if v} == want, (method, launches)
+    times = list(monitor.times)[TRAIN_TIMED]
+    step_s = statistics.median(times)
+    batch = batch_of(TRAIN_STEPS)
+    reset_matmul_launches()
+    (state, metrics), sync_sites = count_syncs(lambda: step(state, batch))
+    syncs = sum(sync_sites.values())
+    step_launches = {k: v for k, v in matmul_launches().items() if v}
+    assert step_launches == ({kernel: per_step} if kernel else {}), (method, step_launches)
+    assert bool(torch.isfinite(metrics["loss"])), metrics
+    try:
+        busy = device_busy_ms(lambda: step(state, batch_of(TRAIN_STEPS + 1)))
+    except Exception as err:                             # noqa: BLE001
+        busy = None
+        log(f"[train] {method}: torch.profiler failed ({err!r})")
+    peak = torch.cuda.max_memory_allocated()
+    mitchell_ms = None
+    if busy is not None and method == "mitchell":
+        mitchell_ms = sum(v for name, v in busy[2].items() if "mitchell_matmul" in name)
+    n_params = model.count_params(state.params)
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    log(f"[train] {TRAIN_ARCH} {method}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters, {cfg.dtype} over float32, remat {cfg.remat}, "
+        f"{cfg.optimizer}; batch {TRAIN_SHAPE[0]} x seq {TRAIN_SHAPE[1]}; loss by step "
+        f"{[round(x, 6) for x in losses]}; step {step_s * 1e3:.4f} ms (median of steps 2-"
+        f"{TRAIN_STEPS}: {[round(t * 1e3, 4) for t in times]}), {tokens / step_s:.2f} tokens/s; "
+        f"a step launches {step_launches or 'no matmul kernel'} and makes {syncs} host "
+        f"syncs; peak {peak / 2**30:.3f} GiB")
+    log(f"[train] {method}: host syncs of a step by site {sync_sites}; one step under "
+        f"torch.profiler: " + (
+            "not measured (no device time seen)" if busy is None else
+            f"wall {busy[0]:.4f} ms, CUDA kernels {busy[1]:.4f} ms, device busy "
+            f"{busy[1] / busy[0]:.4f}"
+            + (f", mitchell_matmul {mitchell_ms:.4f} ms (bound "
+               f"{train_step_bound(int32_ops_per_s):.4f} ms)" if method == "mitchell" else "")
+            + "; most device ms " + ", ".join(f"{k} {v:.4f}" for k, v in list(busy[2].items())[:4])))
+    del state, model, metrics
+    torch.cuda.empty_cache()
+    return launches, mitchell_ms
+
+
+def phase_train_overfit(device: torch.device) -> None:
+    """TRAIN_CUT_LAYERS layers, exact, one batch for TRAIN_OVERFIT['steps']
+    steps at peak lr 1e-3: the loss must fall below 0.9x its first value
+    (the reference's tests/test_models_smoke.py::test_loss_decreases_over_steps)."""
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train_lib import make_train_state, make_train_step
+
+    cfg = train_cut()
+    model = build_model(cfg)
+    state = make_train_state(model, torch.Generator(device).manual_seed(0))
+    kw = {k: v for k, v in TRAIN_OVERFIT.items() if k != "steps"}
+    step = make_train_step(model, **kw)
+    batch = lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1])
+    losses = []
+    for _ in range(TRAIN_OVERFIT["steps"]):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    assert losses[-1] < 0.9 * losses[0], losses
+    log(f"[train] overfit one batch, {TRAIN_CUT_LAYERS} layers, exact, {kw}: loss "
+        f"{[round(x, 4) for x in losses]} ({losses[-1] / losses[0]:.4f} of the first)")
+
+
+def phase_train_fault(device: torch.device) -> None:
+    """TRAIN_CUT_LAYERS layers, exact: `run_training` with a checkpoint every
+    2 steps and a fault injected at step 3 (restored from step 2) against a
+    clean run: the losses and the final params must be bit-identical; the
+    save and restore ms of one checkpoint of the state."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager, restore, save
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import param_groups
+    from repro_torch.runtime.fault import FaultInjector, run_training
+    from repro_torch.runtime.train_lib import make_train_state, make_train_step
+
+    cfg = train_cut()
+    model = build_model(cfg)
+    step = make_train_step(model, **TRAIN_FAULT["lr"])
+
+    def run(ckpt_dir: str, fail_at: tuple) -> tuple[object, list[float]]:
+        losses = {}
+        inj = FaultInjector(fail_at)
+        state = run_training(
+            train_step=step, init_state=lambda: make_train_state(
+                model, torch.Generator(device).manual_seed(0)),
+            batch_fn=lambda s: lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1], step=s),
+            num_steps=TRAIN_FAULT["steps"],
+            ckpt=CheckpointManager(ckpt_dir, interval=TRAIN_FAULT["ckpt_every"]),
+            mesh_shape=(1, 1), injector=inj,
+            on_metrics=lambda s, m: losses.__setitem__(s, float(m["loss"])))
+        assert inj.fired == set(fail_at), inj.fired
+        return state, [losses[s] for s in sorted(losses)]
+
+    with tempfile.TemporaryDirectory() as d:
+        clean, l_clean = run(os.path.join(d, "clean"), ())
+        fault, l_fault = run(os.path.join(d, "fault"), (TRAIN_FAULT["fail_at"],))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(os.path.join(d, "timed"), 1, fault)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = restore(os.path.join(d, "timed"), 1, fault)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        size = sum(os.path.getsize(os.path.join(d, "timed", "step_00000001", f))
+                   for f in os.listdir(os.path.join(d, "timed", "step_00000001")))
+    def leaves(state) -> list[torch.Tensor]:
+        return [t.detach() for g in param_groups(state.params, cfg) for t in g.params]
+
+    pairs = list(zip(leaves(clean), leaves(fault)))
+    gap = max(float((a - b).abs().max()) for a, b in pairs)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(fault)))
+    assert all(torch.equal(a, b) for a, b in pairs), f"restart not bit-identical: {gap}"
+    assert l_fault == l_clean, (l_fault, l_clean)
+    log(f"[train] fault at step {TRAIN_FAULT['fail_at']}, restart from the step-"
+        f"{TRAIN_FAULT['ckpt_every']} checkpoint ({TRAIN_CUT_LAYERS} layers, exact, "
+        f"{TRAIN_FAULT['lr']}): losses {[round(x, 6) for x in l_fault]}, equal to a clean "
+        f"run's; final params bit-identical; one checkpoint ({size / 2**20:.1f} MiB) save "
+        f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms (host clock)")
+
+
+def adafactor_groups() -> list[tuple[str, str, int, int]]:
+    """(arch, largest stacked group's path, its layers, its float32 bytes)
+    for each Adafactor config at full width (shapes only, FakeTensorMode):
+    Adafactor updates a stacked group on `torch.stack` of its grads and
+    params, so it copies that group twice and makes temporaries of its
+    size; AdamW updates each layer's rows in place and copies nothing."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.convert import _param_shapes
+    from repro_torch.optim import param_groups
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        if cfg.optimizer != "adafactor":
+            continue
+        groups = [g for g in param_groups(_param_shapes(cfg), cfg) if g.stacked]
+        big = max(groups, key=lambda g: len(g.params) * g.params[0].numel())
+        out.append((arch, big.key, len(big.params), 4 * len(big.params) * big.params[0].numel()))
+    return out
+
+
+def phase_train(device: torch.device, max_err: dict,
+                int32_ops_per_s: float) -> tuple[dict[str, int], float | None]:
+    """The [train] phase: parity at 2 layers, Qwen2-0.5B at full width and
+    depth under LM_METHODS, the overfit check and the fault restart. ->
+    (the matmul kernels' launches in the full-width runs' run_training
+    steps, mitchell_matmul's device ms in one profiled mitchell step)."""
+    t0 = time.perf_counter()
+    phase_train_parity(device, max_err)
+    launches = dict.fromkeys(MATMUL_KERNELS, 0)
+    mitchell_ms = None
+    for method in LM_METHODS:
+        got, ms = phase_train_method(method, device, int32_ops_per_s)
+        mitchell_ms = ms if method == "mitchell" else mitchell_ms
+        for name in MATMUL_KERNELS:
+            launches[name] += got[name]
+    phase_train_overfit(device)
+    phase_train_fault(device)
+    log("[train] Adafactor's stacked-group copies at full width (the largest group, "
+        "copied twice, with temporaries of its size; AdamW copies none): " + "; ".join(
+            f"{arch} {key} ({layers} layers) {size / 2**30:.3f} GiB"
+            for arch, key, layers, size in adafactor_groups()))
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s (host clock); main-path launches "
+        f"{launches}")
+    return launches, mitchell_ms
+
+
+# the VLM's image K / V projection: the one LM call on the tiled route
+VLM_TILED_SHAPE = (6400, 8192, 1024)
+
+
+def train_kernel_times(int32_ops_per_s: float, device: torch.device,
+                       max_err: dict) -> dict[tuple, dict]:
+    """The two matmul kernels at the train step's shapes (M = batch x seq
+    = 1024 rows against Qwen2-0.5B's four (K, N)), and `mitchell_matmul` at
+    the VLM's tiled-route image projection: device ms of one call (10
+    queued while the card is held) beside the bound and the launches a
+    train step (forward + recompute). The int8 limb kernel is timed on its
+    packed limbs (`product`), its pack step apart. At each train shape both
+    kernels' results are held against their plain versions on the same
+    operands (max |err| 0; the VLM's call is held in `phase_matmul_parity`)."""
+    from repro_torch.core.quant import quantize_limbs
+    from repro_torch.kernels import karatsuba_matmul_i8 as km8
+    from repro_torch.kernels import mitchell_matmul as mm
+    from repro_torch.kernels.karatsuba_matmul import karatsuba_matmul_plain
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rng = np.random.default_rng(91)
+    m = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    results, failures, checked = {}, [], 0
+    shapes = [((m, k, n), 2 * per_step) for (k, n), per_step in LM_DENSE[TRAIN_ARCH]]
+    for (mm_, k, n), per_step in shapes + [(VLM_TILED_SHAPE, 0)]:
+        a = torch.from_numpy(rng.integers(-255, 256, (mm_, k)).astype(np.int32)).to(device)
+        b = torch.from_numpy(rng.integers(-255, 256, (k, n)).astype(np.int32)).to(device)
+        bound, by = mitchell_bound((mm_, k, n), int32_ops_per_s)
+        if per_step:
+            check_equal(max_err, failures, "mitchell_matmul", mm.mitchell_matmul_kernel(a, b),
+                        mm.mitchell_matmul_plain(a, b), f"train shape {(mm_, k, n)}")
+            checked += 1
+        row = {"kernel": "mitchell_matmul", "shape": [mm_, k, n],
+               "plan": str(mm.launch_plan(mm_, k, n, sms)),
+               "device_ms": time_ms_batched(lambda: mm.mitchell_matmul_kernel(a, b)),
+               "bound_ms": bound, "bound_by": by, "launches_a_train_step": per_step}
+        results[("mitchell_train", mm_, k, n)] = row
+        log("[train] " + json.dumps(row))
+        if per_step:
+            x = torch.from_numpy(rng.standard_normal((mm_, k), dtype=np.float32)).to(device)
+            w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(device)
+            da, _ = quantize_limbs(x, karatsuba=True)
+            db, _ = quantize_limbs(w, karatsuba=True)
+            limbs = (da.hi, da.lo, db.hi, db.lo)
+            packed = km8.pack(*limbs, karatsuba=True)
+            for part, got, want in zip(("hh", "mid", "ll"), km8.product(packed),
+                                       karatsuba_matmul_plain(*limbs, karatsuba=True)):
+                check_equal(max_err, failures, "karatsuba_matmul_i8", got, want,
+                            f"{part} train shape {(mm_, k, n)}")
+            checked += 1
+            ops_ms = 3 * 2 * mm_ * k * n / INT8_OPS_PER_S * 1e3
+            bytes_ms = 4 * (2 * mm_ * k + 2 * k * n + 3 * mm_ * n) / HBM_BYTES_PER_S * 1e3
+            row = {"kernel": "karatsuba_matmul_i8", "shape": [mm_, k, n], "karatsuba": True,
+                   "product_device_ms": time_ms_batched(lambda: km8.product(packed)),
+                   "pack_device_ms": time_ms_batched(
+                       lambda: km8.pack_async(*limbs, karatsuba=True)),
+                   "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                   "launches_a_train_step": per_step}
+            results[("karatsuba_train", mm_, k, n)] = row
+            log("[train] " + json.dumps(row))
+    step = {name: sum(row.get("device_ms", row.get("product_device_ms", 0.0))
+                      * row["launches_a_train_step"] for key, row in results.items()
+                      if key[0] == tag)
+            for name, tag in (("mitchell_matmul", "mitchell_train"),
+                              ("karatsuba_matmul_i8", "karatsuba_train"))}
+    results["train_step"] = {**step, "mitchell_bound_ms": train_step_bound(int32_ops_per_s)}
+    log(f"[train] {checked} matmul kernel/plain comparisons at the train shapes, max |err| "
+        f"{ {name: max_err[name] for name in ('mitchell_matmul', 'karatsuba_matmul_i8')} }")
+    if failures:
+        raise AssertionError("matmul kernels disagree with their plain versions at the "
+                             "train shapes:\n" + "\n".join(failures))
+    log(f"[train] a Qwen2-0.5B train step's kernel calls (device ms a call x launches, "
+        f"forward + recompute): mitchell_matmul {step['mitchell_matmul']:.6f} ms (bound "
+        f"{train_step_bound(int32_ops_per_s):.6f} ms), karatsuba_matmul_i8 products "
+        f"{step['karatsuba_matmul_i8']:.6f} ms")
+    return results
+
+
 def tile_cases(shape) -> dict[str, list]:
     """The persistent conv kernels' cases of `phase_tiles` at `shape`: at the
     main-path shape every persistent tap shape of each kernel (direct 3x3 and
@@ -2799,9 +3212,15 @@ def main() -> int:
     serve_launches = phase_serve(device)
     phase_pool(device)
     lm_launches, lm_mitchell_ms = phase_lm(device, max_err, int32_ops_per_s)
+    train_launches, train_mitchell_ms = phase_train(device, max_err, int32_ops_per_s)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
+    train_times = train_kernel_times(int32_ops_per_s, device, max_err)["train_step"]
+    log(f"[times] mitchell_matmul a {TRAIN_ARCH} train step: {train_times['mitchell_matmul']:.6f} "
+        f"ms summed at its shapes, " + ("not measured" if train_mitchell_ms is None
+                                        else f"{train_mitchell_ms:.6f} ms")
+        + f" under the [train] profiler; bound {train_times['mitchell_bound_ms']:.6f} ms")
     steps = mm_times["mitchell_decode_step"]
     for arch, step in steps.items():
         step["lm_device_ms"] = lm_mitchell_ms[arch]
@@ -2822,7 +3241,7 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
-            "tile_launches": main_routes[name],
+            "train_launches": 0, "tile_launches": main_routes[name],
             "tile_device_ms": {row["tile"]: row["device_ms"] for (k, _, shape, _), row
                                in tile_times.items() if k == name and shape == SCALE_SHAPE
                                and row["filter"] in ("fig9", "gaussian5")},
@@ -2839,10 +3258,13 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
-            "lm_launches": lm_launches[name],
+            "lm_launches": lm_launches[name], "train_launches": train_launches[name],
             **({"decode_step_ms": step["ms"], "decode_step_bound_ms": step["bound_ms"],
                 "lm_decode_step_device_ms": step["lm_device_ms"],
-                "decode_step_by_arch": steps}
+                "decode_step_by_arch": steps,
+                "train_step_ms": train_times["mitchell_matmul"],
+                "train_step_bound_ms": train_times["mitchell_bound_ms"],
+                "train_step_device_ms": train_mitchell_ms}
                if name == "mitchell_matmul" else {}),
         })
     log(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s (host clock)")

@@ -10,7 +10,11 @@
   * `from_reference_lm_params` takes a reference LM's parameter pytree (as
     numpy arrays, each segment's layers stacked on a leading axis) and
     returns the port's parameters, one dict per layer, so both packages
-    run an LM from the same weights.
+    run an LM from the same weights;
+  * `from_reference_train_state` takes a reference `TrainState` (as numpy
+    arrays) and returns the port's: the params as above, the optimizer
+    state and error-feedback residual in the reference's stacked shapes
+    keyed by its tree paths (`repro_torch.optim.optimizers.param_groups`).
 
 Nothing here imports the reference package.
 """
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.platform import resolve_device
+from repro_torch.core.tree import tree_paths
 from repro_torch.filters.bank import FilterSpec
 from repro_torch.infer.calibrate import CalibratedModel, with_scales
 from repro_torch.infer.graph import Conv, Dense, Flatten, LayerGraph
@@ -109,6 +114,49 @@ def from_reference_lm_params(params_np: dict, cfg,
     return out
 
 
+def _stacked_tensor(flat: dict, key: str, shape: tuple, dev: torch.device) -> torch.Tensor:
+    if key not in flat:
+        raise ValueError(f"{key}: missing from the reference's state")
+    a = np.asarray(flat.pop(key), np.float32)
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{key}: shape {a.shape}, the config gives {tuple(shape)}")
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def from_reference_train_state(state_np, cfg, device: str | torch.device | None = None):
+    """The port's `TrainState` on `device` for a reference `TrainState`
+    with numpy leaves (`jax.tree.map(np.asarray, state)`): `step`; the
+    params (`from_reference_lm_params`, leaves that require grad); the
+    optimizer state {"count", "state": {path: {"m", "v"} or {"vr", "vc"}
+    or {"v"}}} and the residual `ef` ({path: array} or None), whose leaves
+    keep the reference's stacked shapes. Raises ValueError on a missing,
+    extra or misshapen leaf."""
+    from repro_torch.optim import get_optimizer, param_groups
+    from repro_torch.runtime.train_lib import TrainState
+    dev = resolve_device(device)
+    params = from_reference_lm_params(state_np.params, cfg, dev)
+    groups = param_groups(params, cfg)
+    for group in groups:
+        for t in group.params:
+            t.requires_grad_(True)
+    want = get_optimizer(cfg.optimizer).init(groups)
+    flat = dict(tree_paths(state_np.opt["state"]))
+    opt_state = {g.key: {kind: _stacked_tensor(flat, f"{g.key}/{kind}", t.shape, dev)
+                         for kind, t in want["state"][g.key].items()} for g in groups}
+    if flat:
+        raise ValueError(f"optimizer leaves the config does not give: {sorted(flat)[:4]}")
+    opt = {"count": torch.tensor(int(state_np.opt["count"]), dtype=torch.int32, device=dev),
+           "state": opt_state}
+    ef = None
+    if state_np.ef is not None:
+        flat = dict(tree_paths(state_np.ef))
+        ef = {g.key: _stacked_tensor(flat, g.key, g.shape, dev) for g in groups}
+        if flat:
+            raise ValueError(f"residual leaves the config does not give: {sorted(flat)[:4]}")
+    step = torch.tensor(int(state_np.step), dtype=torch.int32, device=dev)
+    return TrainState(step, params, opt, ef)
+
+
 def _param_shapes(cfg) -> dict:
     """The port's parameter tree for `cfg` with shapes and no storage
     (tensors of a `FakeTensorMode`): the full-size configs too."""
@@ -142,4 +190,5 @@ def _check_shapes(tree, want, path: str) -> None:
         _check_shapes(tree[k], want[k], f"{path}/{k}")
 
 
-__all__ = ["from_reference_lm_params", "from_reference_model", "from_reference_spec"]
+__all__ = ["from_reference_lm_params", "from_reference_model", "from_reference_spec",
+           "from_reference_train_state"]

@@ -1,0 +1,33 @@
+"""Tree paths: the '/'-joined path of every leaf of a nested tree.
+
+A tree is nested dicts, lists, tuples and NamedTuples; None is an empty
+subtree and anything else is a leaf. A path joins the dict keys, list
+indices and NamedTuple field names from the root, as the reference's
+checkpoints and optimizer state name their leaves.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+
+def tree_paths(tree: Any, prefix: str = "", *,
+               sort_keys: bool = False) -> list[tuple[str, Any]]:
+    """[(path, leaf)] of `tree` in depth-first order; dict keys in
+    insertion order, or sorted with `sort_keys` (the order of the
+    reference's tree flattening)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        keys = sorted(tree) if sort_keys else list(tree)
+        items = [(str(k), tree[k]) for k in keys]
+    elif hasattr(tree, "_fields"):                        # a NamedTuple
+        items = [(f, getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    return [pair for k, v in items
+            for pair in tree_paths(v, f"{prefix}/{k}" if prefix else k, sort_keys=sort_keys)]
+
+
+__all__ = ["tree_paths"]

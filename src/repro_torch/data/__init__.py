@@ -1,1 +1,2 @@
-"""Synthetic fingerprint images and the paper's PSNR metric."""
+"""Synthetic fingerprint images and the paper's PSNR metric (`images`), and
+the deterministic synthetic LM batches of training (`tokens`)."""

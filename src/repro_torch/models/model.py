@@ -1,11 +1,12 @@
 """Public model API: build_model(cfg, device) -> Model with init / forward /
-init_cache / prefill / decode_step / count_params.
+loss_fn / init_cache / prefill / decode_step / count_params.
 
 Counterpart of `repro.models.model`, for every family of the configs:
 dense, audio, MoE (MLA or GQA attention), hybrid (zamba2: Mamba2 blocks),
 xLSTM (mLSTM / sLSTM blocks) and the VLM (gated cross-attention layers).
 
-Input contract per cfg.input_kind:
+Input contract per cfg.input_kind (`loss_fn` also reads "labels" (B, S)
+int, negative where masked):
   tokens        batch = {"tokens" (B, S) int}
   frames        batch = {"frames" (B, S, frame_dim) float} (audio:
                 precomputed frame embeddings; encoder-only, no decode)
@@ -21,8 +22,9 @@ Its quantized linears take `impl` ('auto': the Hopper kernels on the card,
 the reference's semantics on the CPU; 'reference' keeps the reference's
 semantics on any device, which on the card runs each kernel's plain
 version for the limb family and the float32-summing LNS route).
-`forward` returns the logits and the MoE layers' summed aux loss; the loss
-itself waits for the training slice (ROADMAP Queue 1 item 2).
+`forward` returns the logits and the MoE layers' summed aux loss;
+`loss_fn` the reference's training loss: token cross-entropy over the
+unmasked labels, the z-loss at 1e-4 and the aux loss at 1e-2.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ class Model(NamedTuple):
     device: torch.device
     init: Callable[..., Params]                # (generator) -> params
     forward: Callable[..., tuple]              # (params, batch) -> (logits, aux)
+    loss_fn: Callable[..., tuple]              # (params, batch) -> (loss, metrics)
     init_cache: Callable[..., list]            # (batch_size, s_max) -> caches
     prefill: Callable[..., tuple]              # -> (logits, caches, cache_len)
     decode_step: Callable[..., tuple]          # -> (logits, caches, cache_len)
@@ -109,6 +112,30 @@ def build_model(cfg, device: str | torch.device | None = None, *,
                                    image_embeds=img, impl=impl)
         return logits_of(params, h), aux
 
+    def loss_fn(params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """-> (the 0-d float32 loss, {"ce", "z_loss", "moe_aux"}): the mean
+        cross-entropy over labels >= 0, plus 1e-4 x the mean squared
+        logsumexp (the z-loss) and 1e-2 x the MoE aux loss. Under
+        `cfg.fused_lse_loss` one logsumexp serves both and the label's logit
+        is gathered in the logits' dtype (the reference's one-hot
+        contraction, which adds that one logit to zeros); else the
+        log-softmax in float32. A masked label's term is multiplied by 0, so
+        its gathered position (clamped to 0) never counts."""
+        logits, aux = forward(params, batch)
+        labels = as_tensor(batch["labels"], torch.long)
+        mask = (labels >= 0).to(torch.float32)
+        idx = labels.clamp(min=0)[..., None]
+        lse = torch.logsumexp(logits.to(torch.float32), dim=-1)            # (B, S)
+        if cfg.fused_lse_loss:
+            nll = lse - logits.gather(-1, idx)[..., 0].to(torch.float32)
+        else:
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            nll = -logp.gather(-1, idx)[..., 0]
+        zl = 1e-4 * torch.square(lse).mean()
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        total = loss + zl + 1e-2 * aux
+        return total, {"ce": loss, "z_loss": zl, "moe_aux": aux}
+
     def init_cache(batch_size: int, s_max: int) -> list:
         return init_caches(cfg, batch_size, s_max, dtype, dev)
 
@@ -145,7 +172,7 @@ def build_model(cfg, device: str | torch.device | None = None, *,
         """Every parameter, zamba2's `shared_block` included."""
         return int(sum(t.numel() for t in _leaves(params)))
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step,
+    return Model(cfg, dev, init, forward, loss_fn, init_cache, prefill, decode_step,
                  count_params)
 
 

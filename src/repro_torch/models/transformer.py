@@ -15,6 +15,21 @@ image keys and values scaled by tanh(xgate), then the MLP), `mamba2` /
 `mamba2_shared` (the hybrid family), `mlstm` / `slstm` (the xLSTM family).
 Every block is pre-norm residual.
 
+Remat: when `cfg.remat` and the forward builds a graph for training (grad
+enabled, no caches), each application of a `segment_kinds` pattern (one
+layer for a dense stack, the VLM's five, ...) runs under
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`, as the
+reference's `jax.checkpoint` wraps `pattern_step`: only the pattern's input
+is kept and its forward runs again in the backward. `remat_policy="full"`
+keeps nothing else; `"dots"` keeps the outputs of the matmuls with no batch
+dimension (`aten.mm` / `aten.addmm`: the float linears, the reference's
+`dots_with_no_batch_dims_saveable`) through
+`create_selective_checkpoint_contexts` and recomputes the rest, the
+batched attention products and the quantized matmuls' integer kernels
+included. The recompute is the same arithmetic, so the gradients are
+byte-equal with remat on and off. The serving path (caches, or no grad)
+never checkpoints.
+
 zamba2's weight-shared attention + MLP block (`shared_block`) is built
 whenever `cfg.shared_attn_period` is set, and applied only by the
 `mamba2_shared` kind, which no config's `block_kinds()` names: the
@@ -23,9 +38,16 @@ R7), and so does the port.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -251,6 +273,26 @@ def init_caches(cfg, batch: int, s_max: int, dtype: torch.dtype,
             for kind in cfg.block_kinds()]
 
 
+#: the ops whose outputs `remat_policy="dots"` keeps: matmuls without a
+#: batch dimension
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def pattern_runs(cfg) -> list[tuple[int, int]]:
+    """(first layer, layers) of each pattern application of the
+    `segment_kinds` segments: the spans remat checkpoints."""
+    runs, start = [], 0
+    for pattern, reps in segment_kinds(cfg.block_kinds()):
+        for _ in range(reps):
+            runs.append((start, len(pattern)))
+            start += len(pattern)
+    return runs
+
+
 def backbone_apply(params: Params, cfg, x: torch.Tensor, *, positions: torch.Tensor,
                    caches: list | None = None, cache_len: torch.Tensor | None = None,
                    image_embeds: torch.Tensor | None = None, decode: bool = False,
@@ -262,19 +304,34 @@ def backbone_apply(params: Params, cfg, x: torch.Tensor, *, positions: torch.Ten
     recurrent kinds' O(1) step (the attention kinds read their caches
     either way)."""
     shared = params.get("shared_block")
+    kinds = cfg.block_kinds()
     new_caches: list | None = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (kind, layer) in enumerate(zip(cfg.block_kinds(), params["layers"])):
-        x, nc, aux = _apply_block(kind, layer, x, cfg, positions=positions,
-                                  cache=caches[i] if caches is not None else None,
-                                  cache_len=cache_len, shared_params=shared,
-                                  image_embeds=image_embeds, decode=decode, impl=impl)
-        if aux is not None:
-            aux_total = aux_total + aux
-        if new_caches is not None:
-            new_caches.append(nc)
+
+    def run(start: int, n: int, x: torch.Tensor, aux_total: torch.Tensor):
+        for i in range(start, start + n):
+            x, nc, aux = _apply_block(kinds[i], params["layers"][i], x, cfg,
+                                      positions=positions,
+                                      cache=caches[i] if caches is not None else None,
+                                      cache_len=cache_len, shared_params=shared,
+                                      image_embeds=image_embeds, decode=decode, impl=impl)
+            if aux is not None:
+                aux_total = aux_total + aux
+            if new_caches is not None:
+                new_caches.append(nc)
+        return x, aux_total
+
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        context = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                   if cfg.remat_policy == "dots" else noop_context_fn)
+        for start, n in pattern_runs(cfg):
+            # the forward draws no random numbers: no RNG state to replay
+            x, aux_total = checkpoint(run, start, n, x, aux_total, use_reentrant=False,
+                                      preserve_rng_state=False, context_fn=context)
+    else:
+        x, aux_total = run(0, len(kinds), x, aux_total)
     x = apply_norm(params["final_ln"], x, cfg.norm)
     return x, new_caches, aux_total
 
 
-__all__ = ["backbone_apply", "backbone_init", "init_caches", "segment_kinds"]
+__all__ = ["backbone_apply", "backbone_init", "init_caches", "pattern_runs", "segment_kinds"]

@@ -1,12 +1,15 @@
-"""The deterministic fault-injection harness the serving fault layer is
+"""Failure handling: restart-from-latest training, straggler detection,
+and the deterministic fault-injection harness the serving fault layer is
 tested with (DESIGN.md §12).
 
-Counterpart of the §12 injection API of `repro.runtime.fault`: the probe
-sites, the `FaultInjector` rules (`at_call`, `every`, `on_key`,
-`at_index`, `poison`), `fault_scope`, `probe` and `InjectedFault`, copied
-with the decisions kept the same. The reference module's training-loop
-pieces (`run_training`, `StragglerMonitor` and the step-fault API) wait
-for the port's training scaffolding (ROADMAP Queue 1 item 2, training).
+Counterpart of `repro.runtime.fault`, with the decisions kept the same.
+The training-loop trio: `run_training()` catches an `InjectedFault` in a
+step and replays from the newest checkpoint (batches are pure functions of
+the step, so the replay is bit-identical), `StragglerMonitor` flags slow
+steps against a rolling median, and `FaultInjector(fail_at_steps=...)` /
+`.check(step)` fails chosen steps once each. Then the §12 injection API:
+the probe sites, the `FaultInjector` rules (`at_call`, `every`, `on_key`,
+`at_index`, `poison`), `fault_scope`, `probe` and `InjectedFault`.
 
 Instrumented code calls the module-level `probe(site, ...)` at well-known
 sites; a probe is a no-op unless a `fault_scope(injector)` is active, so
@@ -32,11 +35,16 @@ key `img<i>:r<r0>c<c0>`, index the tile's work index). `probe` raises `InjectedF
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
+import time
+from collections import deque
 from contextlib import contextmanager
-from typing import Iterator, Sequence
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 from repro_torch.obs.trace import emit as trace_emit
+
+log = logging.getLogger("repro_torch.fault")
 
 #: Instrumented dispatch sites (see the module docstring).
 SITE_EXECUTE = "serve.execute"
@@ -101,17 +109,27 @@ class FaultRule:
 
 
 class FaultInjector:
-    """Deterministic fault schedule of §12 probe rules.
+    """Deterministic fault schedule: step faults + §12 probe rules.
 
     Thread-safe -- the serving worker thread probes while the test thread
     owns the scope. Constructors chain (`inj.at_call(...).poison(...)`).
     """
 
-    def __init__(self) -> None:
+    def __init__(self, fail_at_steps: Iterable[int] = ()) -> None:
+        self.fail_at = set(fail_at_steps)
+        self.fired: set[int] = set()
         self.rules: list[FaultRule] = []
         self.calls: dict[str, int] = {}
         self.events: list[tuple] = []     # (site, call_no, key, index, rule)
         self._lock = threading.Lock()
+
+    # ------------------------------------------------------------ step API
+    def check(self, step: int) -> None:
+        """Raise `InjectedFault` the first time `step` is one of
+        `fail_at_steps`."""
+        if step in self.fail_at and step not in self.fired:
+            self.fired.add(step)
+            raise InjectedFault(f"injected fault at step {step}")
 
     # ------------------------------------------------------- rule construction
     def rule(self, **kw) -> "FaultInjector":
@@ -194,5 +212,84 @@ def probe(site: str, *, key: str | None = None, index: int | None = None,
             injector.probe(site, key=key, index=index, seqs=seqs)
 
 
+class StragglerMonitor:
+    """Flags a step slower than `threshold` x the median of the last
+    `window` steps (once 8 have been seen)."""
+
+    def __init__(self, threshold: float = 3.0, window: int = 32):
+        self.threshold = threshold
+        self.times: deque[float] = deque(maxlen=window)
+        self.flagged: list[tuple[int, float, float]] = []
+
+    def record(self, step: int, dt: float) -> None:
+        if len(self.times) >= 8:
+            srt = sorted(self.times)
+            median = srt[len(srt) // 2]
+            if dt > self.threshold * median:
+                self.flagged.append((step, dt, median))
+                log.warning("straggler: step %d took %.3fs (median %.3fs)",
+                            step, dt, median)
+        self.times.append(dt)
+
+
+def run_training(
+    *,
+    train_step: Callable,
+    init_state: Callable[[], Any],
+    batch_fn: Callable[[int], dict],
+    num_steps: int,
+    ckpt,
+    mesh_shape=None,
+    injector: FaultInjector | None = None,
+    straggler: StragglerMonitor | None = None,
+    max_restarts: int = 10,
+    on_metrics: Callable[[int, dict], None] | None = None,
+) -> Any:
+    """Crash-safe training loop. Returns the final state.
+
+    `ckpt` is a `repro_torch.checkpoint.CheckpointManager`. A fresh start
+    (and every restart after an `InjectedFault`) builds `init_state()` and
+    restores the newest complete checkpoint into its shape and devices, if
+    there is one; more than `max_restarts` faults re-raise. A step's one
+    host sync reads its loss back (`metrics["loss"].item()`), so the step
+    time the straggler monitor sees is the device's too."""
+    restarts = 0
+    state = None
+    while True:
+        try:
+            if state is None:
+                fresh = init_state()
+                step0, restored = ckpt.restore_latest(fresh)
+                if restored is not None:
+                    log.info("restored checkpoint at step %d", step0)
+                    state, start = restored, step0
+                else:
+                    state, start = fresh, 0
+            else:
+                start = int(state.step)
+
+            for step in range(start, num_steps):
+                t0 = time.perf_counter()
+                if injector is not None:
+                    injector.check(step)
+                state, metrics = train_step(state, batch_fn(step))
+                metrics["loss"].item()
+                dt = time.perf_counter() - t0
+                if straggler is not None:
+                    straggler.record(step, dt)
+                if on_metrics is not None:
+                    on_metrics(step, metrics)
+                ckpt.maybe_save(step + 1, state, mesh_shape=mesh_shape)
+            ckpt.wait()
+            return state
+        except InjectedFault as e:
+            restarts += 1
+            log.warning("fault: %s (restart %d/%d)", e, restarts, max_restarts)
+            if restarts > max_restarts:
+                raise
+            state = None                   # force restore-from-latest
+
+
 __all__ = ["FaultInjector", "FaultRule", "InjectedFault", "SITE_EXECUTE",
-           "SITE_SHARD", "SITE_TILE", "fault_scope", "probe"]
+           "SITE_SHARD", "SITE_TILE", "StragglerMonitor", "fault_scope", "probe",
+           "run_training"]
