@@ -164,7 +164,28 @@ Phases, each fatal on failure:
                below 0.9x its first); a fault injected at step 3 and a
                restart from the step-2 checkpoint against a clean run, with
                one checkpoint's save and restore ms;
- 17. times  -- each kernel with CUDA events (median after warm-up) beside
+ 17. mesh   -- the same training over an NCCL process group of one rank
+               (in-process, a `file://` rendezvous) on a (1, 1)
+               `make_host_mesh()`: first a 2-layer mesh step (batch 2 x
+               seq 64) with every `mitchell_matmul` and every limb kernel
+               call (forward and recompute, 28 each) equal to its plain
+               version, and `shard_map_allreduce_i8` equal to its plain
+               version; then per method at full width and depth 3 steps
+               through the mesh `run_training` with a (blocking, timed)
+               sharded checkpoint at step 2: the first step against the
+               [train] phase's unmeshed first step (the loss and every
+               param byte-equal: at world size 1 each collective is the
+               identity), the launches
+               (336 a quantized step), `remesh_restore` of the checkpoint
+               onto a fresh (1, 1) mesh and its step 3 against the run's;
+               [mesh] lines: step ms (median of steps 2-3), tokens/s, the
+               collectives a step by kind with their bytes, host syncs,
+               busy share, peak GiB, save / restore ms, beside the [train]
+               phase's unmeshed numbers. With two cards or more, 4 (or 2)
+               NCCL ranks of their own processes take one step on an
+               (n, 1) mesh against the unmeshed step; on one card a line
+               says it was not run;
+ 18. times  -- each kernel with CUDA events (median after warm-up) beside
                its plain version, its bound and, where PyTorch has one call
                that computes the same sums, that call; the matmul kernels at
                the full-width shape; `conv_pass_kcm`'s measurement variants
@@ -177,21 +198,24 @@ Phases, each fatal on failure:
                the recurse kernels for every method beside the tiled kernel
                of the first design (variant 0), on [variant] lines too;
                `mitchell_matmul` at the six LMs' decode (M = 4) and
-               prefill (M = 128) shapes beside their bounds, summed to the ms
-               of each LM's decode step; [route] lines: both routes at (M, 896, 4864)
+               prefill (M = 128) shapes beside their bounds (and, at M = 4,
+               its plain version), summed to the ms of each LM's decode step; [route] lines: both routes at (M, 896, 4864)
                for M = 4 .. 2048, the timings behind the plan's route cut;
                both matmul kernels at the train step's shapes (M = 1024)
-               and `mitchell_matmul` at the VLM's tiled image projection
+               beside their plain versions, the limb kernel beside 3
+               `torch._int_mm` calls there, and
+               `mitchell_matmul` at the VLM's tiled image projection
                (6400 x 8192 x 1024), [train] lines;
 The line before the last is a JSON object naming the seven kernels with
 their numbers (and `serve_launches`, their launches in phase 13;
 `train_launches`, their launches in phase 16's twelve full-width steps,
+`mesh_train_launches` their launches in phase 17's nine,
 with `train_step_ms`, `train_step_bound_ms` and `train_step_device_ms`
 for `mitchell_matmul`, a step's calls summed at their shapes, the bound
 and the profiler's reading; for the
 matmul kernels `lm_launches`, their launches in phase 15's eighteen
 greedy runs (six LMs x three methods), and for
-`mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 16's
+`mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 18's
 sum over a Qwen2-0.5B decode step's shapes, `lm_decode_step_device_ms`,
 phase 15's profiler reading, and `decode_step_by_arch`, the three for each
 LM; for the
@@ -1847,12 +1871,13 @@ def phase_train_parity(device: torch.device, max_err: dict) -> None:
 
 
 def phase_train_method(method: str, device: torch.device,
-                       int32_ops_per_s: float) -> tuple[dict[str, int], float | None]:
+                       int32_ops_per_s: float) -> tuple[dict[str, int], float | None, dict]:
     """TRAIN_ARCH at full width and depth, `method`: TRAIN_STEPS steps of
     batch 8 x seq 128 through `run_training` (no checkpoint falls in them),
     then one step under the CUDA sync debug mode and one under
     torch.profiler. -> (the matmul kernels' launches in the run_training
-    steps, mitchell_matmul's device ms in the profiled step or None)."""
+    steps, mitchell_matmul's device ms in the profiled step or None, the
+    step's numbers for the [mesh] phase's comparison)."""
     import dataclasses
     import tempfile
 
@@ -1866,13 +1891,13 @@ def phase_train_method(method: str, device: torch.device,
     model = build_model(cfg)
     step = make_train_step(model)
     batch_of = lambda s: lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1], step=s)  # noqa: E731
-    monitor, losses = StragglerMonitor(), []
+    monitor, losses, first = StragglerMonitor(), [], {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as ckpt_dir:
         reset_matmul_launches()
         state = run_training(
-            train_step=step, init_state=lambda: make_train_state(
+            train_step=first_step_kept(step, cfg, first), init_state=lambda: make_train_state(
                 model, torch.Generator(device).manual_seed(0)),
             batch_fn=batch_of, num_steps=TRAIN_STEPS,
             ckpt=CheckpointManager(ckpt_dir, interval=10 * TRAIN_STEPS),
@@ -1921,7 +1946,10 @@ def phase_train_method(method: str, device: torch.device,
             + "; most device ms " + ", ".join(f"{k} {v:.4f}" for k, v in list(busy[2].items())[:4])))
     del state, model, metrics
     torch.cuda.empty_cache()
-    return launches, mitchell_ms
+    numbers = {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s, "syncs": syncs,
+               "busy": None if busy is None else busy[1] / busy[0],
+               "peak_gib": peak / 2**30, "first": first}
+    return launches, mitchell_ms, numbers
 
 
 def phase_train_overfit(device: torch.device) -> None:
@@ -2029,17 +2057,19 @@ def adafactor_groups() -> list[tuple[str, str, int, int]]:
 
 
 def phase_train(device: torch.device, max_err: dict,
-                int32_ops_per_s: float) -> tuple[dict[str, int], float | None]:
+                int32_ops_per_s: float) -> tuple[dict[str, int], float | None, dict]:
     """The [train] phase: parity at 2 layers, Qwen2-0.5B at full width and
     depth under LM_METHODS, the overfit check and the fault restart. ->
     (the matmul kernels' launches in the full-width runs' run_training
-    steps, mitchell_matmul's device ms in one profiled mitchell step)."""
+    steps, mitchell_matmul's device ms in one profiled mitchell step, each
+    method's step numbers)."""
     t0 = time.perf_counter()
     phase_train_parity(device, max_err)
     launches = dict.fromkeys(MATMUL_KERNELS, 0)
     mitchell_ms = None
+    numbers = {}
     for method in LM_METHODS:
-        got, ms = phase_train_method(method, device, int32_ops_per_s)
+        got, ms, numbers[method] = phase_train_method(method, device, int32_ops_per_s)
         mitchell_ms = ms if method == "mitchell" else mitchell_ms
         for name in MATMUL_KERNELS:
             launches[name] += got[name]
@@ -2051,7 +2081,415 @@ def phase_train(device: torch.device, max_err: dict,
             for arch, key, layers, size in adafactor_groups()))
     log(f"[train] phase {time.perf_counter() - t0:.1f} s (host clock); main-path launches "
         f"{launches}")
-    return launches, mitchell_ms
+    return launches, mitchell_ms, numbers
+
+
+MESH_STEPS = 3                      # run_training steps a method on the mesh
+MESH_CKPT_EVERY = 2                 # the checkpoint the remesh restore reads
+MESH_TIMED = slice(1, MESH_STEPS)   # steps 2-3
+MESH_RANKS = (4, 2)                 # ranks of the multi-card check, the most that fit
+MESH_LOSS_RTOL = 2e-5              # the reference's own (test_distribution.py)
+#: the multi-card first step against the unmeshed one: each param's change
+#: within MESH_DELTA_TOL of its leaf's largest change (+ 2 ulps of the
+#: param) where AdamW's first step, g / (|g| + 1e-8), is the grad's sign
+#: to 1% (|g| >= 100 x 1e-8) and that sign is sure (|g| above MESH_EXEMPT
+#: of the model's largest |grad|); below, the step follows the grad's
+#: summation noise. A grad exactly 0 in the unmeshed step is no sign: the
+#: other order may leave 2e-9 there, a step of 0.17 (four cards, float32)
+MESH_DELTA_TOL = 1e-2
+MESH_EXEMPT = 1e-4
+MESH_SATURATED = 100 * 1e-8
+
+
+@contextlib.contextmanager
+def checked_limbs(stats: dict):
+    """Every `karatsuba_matmul_kernel` call inside also runs
+    `karatsuba_matmul_plain` on the same limbs; `stats` counts the calls and
+    keeps the largest |kernel - plain| of the hh, mid and ll sums."""
+    from repro_torch.kernels import karatsuba_matmul as km
+    kernel = km.karatsuba_matmul_kernel
+
+    def checked(*limbs, **kw):
+        out = kernel(*limbs, **kw)
+        plain = km.karatsuba_matmul_plain(*limbs, **kw)
+        stats["calls"] += 1
+        stats["max_err"] = max(stats["max_err"], *(int((o.long() - p.long()).abs().max())
+                                                   for o, p in zip(out, plain)))
+        return out
+
+    km.karatsuba_matmul_kernel = checked
+    try:
+        yield
+    finally:
+        km.karatsuba_matmul_kernel = kernel
+
+
+@contextlib.contextmanager
+def nccl_world(rank: int, world: int, rdzv: str, device_type: str = "cuda"):
+    """An NCCL process group of `world` ranks meeting at the file `rdzv`,
+    this process rank `rank` on card `rank`, destroyed on exit; gloo on
+    the CPU for `device_type` "cpu" (a rehearsal without a card)."""
+    import torch.distributed as dist
+    if device_type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method=f"file://{rdzv}", rank=rank,
+                                world_size=world, device_id=device)
+    else:
+        dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                                world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def whole_params(state, cfg) -> list[torch.Tensor]:
+    """The params of a state, whole (a sharded leaf gathered), in group order."""
+    from repro_torch.optim import param_groups
+    from repro_torch.runtime import sharding as shd
+    return [shd.gather(t).detach() for g in param_groups(state.params, cfg) for t in g.params]
+
+
+def first_step_kept(step, cfg, into: dict):
+    """`step`, which after its first call keeps that step's loss and whole
+    params (in host memory) in `into`: the step from the seed-0 state on
+    batch 0, in the [train] runs and the [mesh] runs alike."""
+    def wrapped(state, batch):
+        state, metrics = step(state, batch)
+        if not into:
+            into["loss"] = metrics["loss"].detach().to("cpu", copy=True)
+            into["params"] = [t.to("cpu", copy=True) for t in whole_params(state, cfg)]
+        return state, metrics
+    return wrapped
+
+
+def first_step_gap(got: dict, want: dict) -> dict:
+    """The (1, 1) mesh run's first step against the unmeshed one's (both
+    kept by `first_step_kept`): byte-equal, loss and every param. At world
+    size 1 every collective is the identity and the step computes what the
+    unmeshed step computes, in its order; -> the gaps (zero)."""
+    gap = {"loss_equal": bool(torch.equal(got["loss"], want["loss"])),
+           "params_equal": all(torch.equal(a, b) for a, b in zip(got["params"], want["params"])),
+           "loss_rel": float((got["loss"] - want["loss"]).abs() / want["loss"].abs()),
+           "params_max_abs": max(float((a - b).abs().max())
+                                 for a, b in zip(got["params"], want["params"]))}
+    assert gap["loss_equal"] and gap["params_equal"], gap
+    return gap
+
+
+class TimedCheckpoints:
+    """A `CheckpointManager` whose saves block and are timed: the [mesh]
+    phase's save ms, with no writer thread beside the timed steps."""
+
+    def __init__(self, ckpt_dir: str, interval: int):
+        from repro_torch.checkpoint import CheckpointManager
+        self.manager = CheckpointManager(ckpt_dir, interval=interval)
+        self.save_ms = None
+
+    def maybe_save(self, step: int, tree, mesh_shape=None) -> bool:
+        from repro_torch.checkpoint import save
+        if step % self.manager.interval:
+            return False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self.manager.dir, step, tree, mesh_shape=mesh_shape)
+        self.save_ms = (time.perf_counter() - t0) * 1e3
+        return True
+
+    def wait(self) -> None:
+        self.manager.wait()
+
+    def restore_latest(self, like, device=None):
+        return self.manager.restore_latest(like, device)
+
+
+def phase_mesh_parity(mesh, device: torch.device, max_err: dict) -> None:
+    """At TRAIN_CUT_LAYERS layers, full width, batch 2 x seq 64, on `mesh`:
+    one mitchell and one karatsuba_int16 mesh step, every call of
+    `mitchell_matmul` / the limb kernel (forward and recompute) held
+    against its plain version; the int8 all-reduce against its plain
+    version on a stacked wq-sized tensor."""
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim.grad_compress import shard_map_allreduce_i8
+    from repro_torch.runtime.train_lib import make_train_state, make_train_step
+
+    batch = lm_batch(train_cut(), batch=TRAIN_PARITY_SHAPE[0], seq=TRAIN_PARITY_SHAPE[1])
+    for method, checked, kernel in (("mitchell", checked_mitchell, "mitchell_matmul"),
+                                    ("karatsuba_int16", checked_limbs, "karatsuba_matmul_i8")):
+        cfg = train_cut(method)
+        model = build_model(cfg)
+        state = make_train_state(model, torch.Generator(device).manual_seed(1), mesh)
+        stats = {"calls": 0, "max_err": 0}
+        reset_matmul_launches()
+        with checked(stats):
+            state, metrics = make_train_step(model, mesh=mesh)(state, batch)
+        launches = {k: v for k, v in matmul_launches().items() if v}
+        max_err[kernel] = max(max_err[kernel], stats["max_err"])
+        assert stats["calls"] == train_dense_calls(cfg) and stats["max_err"] == 0, stats
+        assert launches == {kernel: stats["calls"]}, launches
+        assert bool(torch.isfinite(metrics["loss"])), metrics
+        log(f"[mesh] parity, {TRAIN_ARCH} {TRAIN_CUT_LAYERS} layers full width, batch "
+            f"{TRAIN_PARITY_SHAPE[0]} x seq {TRAIN_PARITY_SHAPE[1]}, remat, mesh "
+            f"{tuple(mesh.shape)}: {kernel} == its plain version on all {stats['calls']} "
+            f"calls of a {method} mesh step (max |err| {stats['max_err']}); loss "
+            f"{float(metrics['loss']):.6f}")
+        del model, state
+    x = torch.randn((TRAIN_CUT_LAYERS * 896, 896), generator=torch.Generator(device)
+                    .manual_seed(5), device=device)
+    t0 = time.perf_counter()
+    got = shard_map_allreduce_i8(x, mesh, "data")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    scale = torch.maximum(x.abs().max(), torch.tensor(1e-30, device=device)) / \
+        torch.tensor(127.0, device=device)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    want = q.to(torch.int32).to(torch.float32) * scale / torch.tensor(1.0, device=device)
+    err = float((got - want).abs().max())
+    assert err == 0, err
+    log(f"[mesh] shard_map_allreduce_i8 on {tuple(x.shape)} float32 over the mesh's data "
+        f"axis == its plain version (max |err| {err}); {ms:.4f} ms (host clock, first call)")
+
+
+def phase_mesh_method(method: str, mesh, device: torch.device,
+                      unmeshed_first: dict | None) -> tuple[dict, dict[str, int]]:
+    """TRAIN_ARCH at full width and depth, `method`, on `mesh`: MESH_STEPS
+    steps through `run_training` with a (blocking, timed) checkpoint at
+    MESH_CKPT_EVERY, the first against the [train] phase's unmeshed first
+    step (`unmeshed_first`), the remesh restore of that checkpoint onto a
+    fresh mesh and its next step against the run's, one step under the
+    sync debug mode and one under torch.profiler. -> (the step's numbers,
+    the matmul kernels' launches in the run_training steps)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.elastic import abstract_train_state, remesh_restore
+    from repro_torch.runtime.fault import StragglerMonitor, run_training
+    from repro_torch.runtime.train_lib import make_train_state, make_train_step
+
+    cfg = dataclasses.replace(lm_config(TRAIN_ARCH), matmul_method=method)
+    model = build_model(cfg)
+    batch_of = lambda s: lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1], step=s)  # noqa: E731
+    step = make_train_step(model, mesh=mesh)
+    monitor, losses, first = StragglerMonitor(), [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ckpt = TimedCheckpoints(ckpt_dir, MESH_CKPT_EVERY)
+        reset_matmul_launches()
+        state = run_training(
+            train_step=first_step_kept(step, cfg, first), init_state=lambda: make_train_state(
+                model, torch.Generator(device).manual_seed(0), mesh),
+            batch_fn=batch_of, num_steps=MESH_STEPS, ckpt=ckpt, mesh_shape=tuple(mesh.shape),
+            straggler=monitor, on_metrics=lambda s, m: losses.append(m["loss"]))
+        launches = matmul_launches()
+        peak = torch.cuda.max_memory_allocated()
+        size = sum(f.stat().st_size for f in Path(ckpt_dir, f"step_{MESH_CKPT_EVERY:08d}")
+                   .iterdir())
+        fresh = make_host_mesh()
+        t0 = time.perf_counter()
+        at, restored = remesh_restore(ckpt_dir, abstract_train_state(cfg), cfg, fresh,
+                                      multi_pod=False)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    gap = None if unmeshed_first is None else first_step_gap(first, unmeshed_first)
+    del first
+    assert at == MESH_CKPT_EVERY and int(restored.step) == at, at
+    _, again = make_train_step(model, mesh=fresh)(restored, batch_of(at))
+    del restored
+    losses = [float(x) for x in losses]
+    assert len(losses) == MESH_STEPS and all(np.isfinite(losses)), losses
+    resumed = float(again["loss"])
+    assert abs(resumed - losses[at]) <= MESH_LOSS_RTOL * abs(losses[at]), (resumed, losses)
+    per_step = train_dense_calls(cfg)
+    kernel = {"mitchell": "mitchell_matmul", "karatsuba_int16": "karatsuba_matmul_i8"}.get(method)
+    want = {kernel: MESH_STEPS * per_step} if kernel else {}
+    assert {k: v for k, v in launches.items() if v} == want, (method, launches)
+    times = list(monitor.times)[MESH_TIMED]
+    step_s = statistics.median(times)
+    batch = batch_of(MESH_STEPS)
+    shd.reset_collectives()
+    (state, metrics), sync_sites = count_syncs(lambda: step(state, batch))
+    collectives = dict(shd.COLLECTIVES)
+    syncs = sum(sync_sites.values())
+    try:
+        busy = device_busy_ms(lambda: step(state, batch_of(MESH_STEPS + 1)))
+    except Exception as err:                             # noqa: BLE001
+        busy = None
+        log(f"[mesh] {method}: torch.profiler failed ({err!r})")
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    numbers = {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s, "syncs": syncs,
+               "busy": None if busy is None else busy[1] / busy[0],
+               "peak_gib": peak / 2**30, "save_ms": ckpt.save_ms, "restore_ms": restore_ms,
+               "ckpt_mib": size / 2**20, "collectives": collectives, "first_step": gap,
+               "losses": losses, "resumed_loss": resumed}
+    first_line = "not compared (no [train] phase ran)" if gap is None else (
+        f"loss {'byte-equal' if gap['loss_equal'] else 'rel gap %.3g' % gap['loss_rel']}, "
+        f"params {'byte-equal' if gap['params_equal'] else 'max |gap| %.3g' % gap['params_max_abs']}")
+    log(f"[mesh] {TRAIN_ARCH} {method} on mesh {tuple(mesh.shape)} (NCCL): {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.dtype} over float32, remat {cfg.remat}, "
+        f"{cfg.optimizer}; batch {TRAIN_SHAPE[0]} x seq {TRAIN_SHAPE[1]}; first step vs the "
+        f"[train] phase's unmeshed first step: {first_line}; loss by step "
+        f"{[round(x, 6) for x in losses]}; step {step_s * 1e3:.4f} ms (median of steps "
+        f"2-{MESH_STEPS}: {[round(t * 1e3, 4) for t in times]}), {tokens / step_s:.2f} "
+        f"tokens/s; launches {want or 'no matmul kernel'}")
+    log(f"[mesh] {method}: a step's collectives {collectives}; host syncs {syncs} by site "
+        f"{sync_sites}; " + ("busy not measured (no device time seen)" if busy is None else
+                             f"one step under torch.profiler: wall {busy[0]:.4f} ms, CUDA "
+                             f"kernels {busy[1]:.4f} ms, busy {busy[1] / busy[0]:.4f}")
+        + f"; peak {peak / 2**30:.3f} GiB; sharded checkpoint ({size / 2**20:.1f} MiB) save "
+        f"{ckpt.save_ms:.1f} ms, remesh restore onto a fresh {tuple(fresh.shape)} mesh "
+        f"{restore_ms:.1f} ms (host clock); step {at + 1} after the restore: loss "
+        f"{resumed:.6f} ({'byte-equal to' if resumed == losses[at] else 'within rtol 2e-5 of'}"
+        f" the run's {losses[at]:.6f})")
+    del state, model, metrics
+    torch.cuda.empty_cache()
+    return numbers, launches
+
+
+def delta_gap(p0: list, got: list, want: list, grads: list, names: list) -> dict:
+    """Each param's change in the mesh step (`got` - `p0`) against the
+    unmeshed step's (`want` - `p0`), leaf by leaf (`names`): the largest
+    |gap| over MESH_DELTA_TOL x the leaf's largest |change| + 2 ulps of
+    the param, on the elements whose unmeshed grad is above MESH_SATURATED
+    and MESH_EXEMPT x the model's largest |grad| (`held`); above 1 fails.
+    -> that ratio and its leaf, the largest |grad|, the share of the
+    elements held."""
+    eps = torch.finfo(torch.float32).eps
+    gmax = max(float(g.float().abs().max()) for g in grads)
+    floor = max(MESH_SATURATED, MESH_EXEMPT * gmax)
+    worst, leaf, held, total = 0.0, None, 0, 0
+    for a, g, w, gr, name in zip(p0, got, want, grads, names):
+        d_got, d_want = g.float() - a.float(), w.float() - a.float()
+        gr = gr.float().abs()
+        keep = gr > floor
+        atol = MESH_DELTA_TOL * d_want.abs().max() + 2 * eps * w.float().abs()
+        ratio = float(((d_got - d_want).abs() / atol)[keep].max()) if keep.any() else 0.0
+        if ratio > worst:
+            worst, leaf = ratio, name
+        held, total = held + int(keep.sum()), total + keep.numel()
+    return {"worst": worst, "worst_leaf": leaf, "grad_max": gmax, "held": held / total}
+
+
+def mesh_rank(rank: int, world: int, rdzv: str, out: str, device_type: str = "cuda") -> None:
+    """(a spawned rank) one full-width Qwen2-0.5B step in float32 (the
+    reference's tolerances are float32's) on a (world, 1) NCCL mesh from
+    the seed-0 state; rank 0 also takes the unmeshed step (and its grads)
+    and writes the loss and the params' `delta_gap`."""
+    import dataclasses
+
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import param_groups
+    from repro_torch.runtime.train_lib import grads_of, make_train_state, make_train_step
+    with nccl_world(rank, world, rdzv, device_type):
+        device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+        cfg = dataclasses.replace(lm_config(TRAIN_ARCH), dtype="float32")
+        model = build_model(cfg, device)
+        mesh = make_host_mesh()
+        batch = lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1])
+        state = make_train_state(model, torch.Generator(device).manual_seed(0), mesh)
+        state, metrics = make_train_step(model, mesh=mesh)(state, batch)
+        got = [t.to("cpu") for t in whole_params(state, cfg)]
+        del state
+        if rank == 0:
+            plain = make_train_state(model, torch.Generator(device).manual_seed(0))
+            p0 = [t.to("cpu", copy=True) for t in whole_params(plain, cfg)]
+            groups = param_groups(plain.params, cfg)
+            leaves = [t for g in groups for t in g.params]
+            names = [f"{g.key}[{i}]" for g in groups for i in range(len(g.params))]
+            grads = [g.to("cpu") for g in grads_of(model, plain.params, batch, leaves)[2]]
+            plain, pm = make_train_step(model)(plain, batch)
+            want = [t.to("cpu") for t in whole_params(plain, cfg)]
+            Path(out).write_text(json.dumps({
+                "loss": float(metrics["loss"]), "unmeshed_loss": float(pm["loss"]),
+                "params_max_abs": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                **delta_gap(p0, got, want, grads, names)}))
+
+
+def phase_mesh_ranks() -> None:
+    """Where the machine has two cards or more: MESH_RANKS' largest that
+    fits, as NCCL ranks of their own processes, one step each; the loss
+    against the unmeshed step's within MESH_LOSS_RTOL, each param's change
+    against its (`delta_gap`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    count = torch.cuda.device_count()
+    fits = [n for n in MESH_RANKS if n <= count]
+    if not fits:
+        log(f"[mesh] multi-card step not run: {count} CUDA device(s) here, the check "
+            f"needs 2 or more (one NCCL rank a card)")
+        return
+    n = fits[0]
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "gap.json")
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(n, os.path.join(d, "rdzv"), out), nprocs=n)
+        gap = json.loads(Path(out).read_text())
+    rel = abs(gap["loss"] - gap["unmeshed_loss"]) / abs(gap["unmeshed_loss"])
+    assert rel <= MESH_LOSS_RTOL and gap["worst"] <= 1 and gap["held"] > 0, gap
+    log(f"[mesh] {n} NCCL ranks, a ({n}, 1) mesh, {TRAIN_ARCH} full width and depth in "
+        f"float32: first "
+        f"step loss {gap['loss']:.6f} vs unmeshed {gap['unmeshed_loss']:.6f} (rel {rel:.3g}), "
+        f"params max |gap| {gap['params_max_abs']:.3g}, each param's change within "
+        f"{gap['worst']:.3g} of its tolerance ({MESH_DELTA_TOL} of its leaf's largest change; "
+        f"the worst {gap['worst_leaf']}) on the {gap['held']:.1%} of elements whose grad is "
+        f"above {MESH_SATURATED} and {MESH_EXEMPT} of the largest ({gap['grad_max']:.3g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_mesh(device: torch.device, max_err: dict, smi: str,
+               unmeshed: dict | None) -> dict[str, int]:
+    """The [mesh] phase: multi-card training's path at world size 1 (an
+    in-process NCCL group, a (1, 1) mesh): the parity step, then
+    TRAIN_ARCH at full width and depth under LM_METHODS beside the [train]
+    phase's unmeshed numbers (`unmeshed`, by method); then the multi-card
+    check where there are cards for it. -> the matmul kernels' launches in
+    the mesh run_training steps."""
+    import tempfile
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(MATMUL_KERNELS, 0)
+    rows = {}
+    with tempfile.TemporaryDirectory() as d, nccl_world(0, 1, os.path.join(d, "rdzv")):
+        mesh = make_host_mesh()
+        phase_mesh_parity(mesh, device, max_err)
+        for method in LM_METHODS:
+            plain = (unmeshed or {}).get(method)
+            rows[method], got = phase_mesh_method(method, mesh, device,
+                                                  None if plain is None else plain["first"])
+            for name in MATMUL_KERNELS:
+                launches[name] += got[name]
+    for method, row in rows.items():
+        plain = (unmeshed or {}).get(method)
+        coll = row["collectives"]
+        kinds = {k: v for k, v in coll.items() if not k.endswith("_bytes")}
+        volume = sum(v for k, v in coll.items() if k.endswith("_bytes"))
+        log(f"[mesh] {smi}: {method}: mesh (1, 1) / unmeshed step ms "
+            f"{row['step_ms']:.4f} / " + ("not measured" if plain is None else
+                                          f"{plain['step_ms']:.4f}")
+            + f", tokens/s {row['tokens_per_s']:.2f} / "
+            + ("-" if plain is None else f"{plain['tokens_per_s']:.2f}")
+            + f", host syncs {row['syncs']} / " + ("-" if plain is None else f"{plain['syncs']}")
+            + ", busy " + ("-" if row["busy"] is None else f"{row['busy']:.4f}") + " / "
+            + ("-" if plain is None or plain["busy"] is None else f"{plain['busy']:.4f}")
+            + f", peak GiB {row['peak_gib']:.3f} / "
+            + ("-" if plain is None else f"{plain['peak_gib']:.3f}")
+            + f"; collectives a step {kinds} ({volume / 2**20:.1f} MiB) / none; sharded "
+            f"save {row['save_ms']:.1f} ms, restore {row['restore_ms']:.1f} ms")
+    phase_mesh_ranks()
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s (host clock); main-path launches "
+        f"{launches}")
+    return launches
 
 
 # the VLM's image K / V projection: the one LM call on the tiled route
@@ -2090,6 +2528,8 @@ def train_kernel_times(int32_ops_per_s: float, device: torch.device,
                "plan": str(mm.launch_plan(mm_, k, n, sms)),
                "device_ms": time_ms_batched(lambda: mm.mitchell_matmul_kernel(a, b)),
                "bound_ms": bound, "bound_by": by, "launches_a_train_step": per_step}
+        if per_step:
+            row["plain_ms"] = time_ms(lambda: mm.mitchell_matmul_plain(a, b), 1, warmup=0)
         results[("mitchell_train", mm_, k, n)] = row
         log("[train] " + json.dumps(row))
         if per_step:
@@ -2106,12 +2546,22 @@ def train_kernel_times(int32_ops_per_s: float, device: torch.device,
             checked += 1
             ops_ms = 3 * 2 * mm_ * k * n / INT8_OPS_PER_S * 1e3
             bytes_ms = 4 * (2 * mm_ * k + 2 * k * n + 3 * mm_ * n) / HBM_BYTES_PER_S * 1e3
+            ah, al, bh, bl = (t.to(torch.int8) for t in limbs)
+            asum = (da.hi + da.lo).to(torch.int8)
+            bsum = (db.hi + db.lo).to(torch.int8)
+            library = lambda: (torch._int_mm(ah, bh), torch._int_mm(al, bl),  # noqa: E731
+                               torch._int_mm(asum, bsum))
             row = {"kernel": "karatsuba_matmul_i8", "shape": [mm_, k, n], "karatsuba": True,
                    "product_device_ms": time_ms_batched(lambda: km8.product(packed)),
                    "pack_device_ms": time_ms_batched(
                        lambda: km8.pack_async(*limbs, karatsuba=True)),
                    "bound_ms": max(ops_ms, bytes_ms),
                    "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                   "plain_ms": time_ms(lambda: karatsuba_matmul_plain(*limbs, karatsuba=True),
+                                       3, warmup=1),
+                   "library_device_ms": time_ms_batched(library),
+                   "library": "3 torch._int_mm calls on the int8 limbs (the same partial "
+                              "sums), B row-major as the limbs lie",
                    "launches_a_train_step": per_step}
             results[("karatsuba_train", mm_, k, n)] = row
             log("[train] " + json.dumps(row))
@@ -3064,6 +3514,9 @@ def mitchell_lm_times(int32_ops_per_s: float, device: torch.device) -> dict[tupl
             if m == LM_DECODE_M:
                 row["launches_a_decode_step"] = {arch: per_step for arch, dense in LM_DENSE.items()
                                                  for shape, per_step in dense if shape == (k, n)}
+                # the plain version forms every element product: cheap at
+                # M = 4, 1.5e11 of them over the prefill shapes (not timed)
+                row["plain_ms"] = time_ms(lambda: mm.mitchell_matmul_plain(a, b), 1, warmup=0)
             results[("mitchell_lm", m, k, n)] = row
             log(json.dumps(row))
     results["mitchell_decode_step"] = {}
@@ -3212,7 +3665,9 @@ def main() -> int:
     serve_launches = phase_serve(device)
     phase_pool(device)
     lm_launches, lm_mitchell_ms = phase_lm(device, max_err, int32_ops_per_s)
-    train_launches, train_mitchell_ms = phase_train(device, max_err, int32_ops_per_s)
+    train_launches, train_mitchell_ms, train_numbers = phase_train(device, max_err,
+                                                                   int32_ops_per_s)
+    mesh_launches = phase_mesh(device, max_err, smi, train_numbers)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
@@ -3259,6 +3714,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
             "lm_launches": lm_launches[name], "train_launches": train_launches[name],
+            "mesh_train_launches": mesh_launches[name],
             **({"decode_step_ms": step["ms"], "decode_step_bound_ms": step["bound_ms"],
                 "lm_decode_step_device_ms": step["lm_device_ms"],
                 "decode_step_by_arch": steps,

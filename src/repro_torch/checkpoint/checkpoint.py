@@ -13,7 +13,13 @@ Counterpart of `repro.checkpoint.checkpoint`, on the reference's layout:
     goes on. The snapshot is a copy (`Tensor.to("cpu", copy=True)`): on
     the CPU `.cpu()` returns the same storage, and the next step's in-place
     update would race the writer;
-  * device-agnostic: `restore` puts the leaves on the device asked for.
+  * device-agnostic: `restore` puts the leaves on the device asked for;
+  * mesh-agnostic: a sharded state (DTensor leaves, `repro_torch.runtime.
+    sharding`) is saved whole, under the same keys, so a checkpoint's bytes
+    do not depend on the mesh that wrote it; every rank gathers, rank 0
+    writes, and `manifest.json` records the mesh's shape. `restore(...,
+    shardings=...)` gives each rank its block on the mesh asked for
+    (`repro_torch.runtime.elastic.remesh_restore`).
 
 A tree is nested dicts, lists, tuples and NamedTuples (a `TrainState`)
 with tensor leaves; None is an empty subtree. Keys follow the reference's
@@ -32,35 +38,38 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_paths
+from repro_torch.core.tree import tree_map_with_path, tree_paths
 
 
-def _rebuild(tree: Any, leaf_fn, prefix: str = "") -> Any:
-    """`tree` with each leaf replaced by leaf_fn(path, leaf)."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaf_fn, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(_rebuild(getattr(tree, f), leaf_fn,
-                                     f"{prefix}/{f}" if prefix else f) for f in tree._fields))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaf_fn, f"{prefix}/{i}" if prefix else str(i))
-                          for i, v in enumerate(tree))
-    return leaf_fn(prefix, tree)
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
-def _snapshot(tree: Any) -> dict[str, np.ndarray]:
-    """Every leaf of `tree` as a NumPy copy in host memory, by path."""
-    return {k: (v.detach().to("cpu", copy=True).numpy() if isinstance(v, torch.Tensor)
-                else np.array(v, copy=True)) for k, v in tree_paths(tree)}
+def _snapshot(tree: Any, keep: bool = True) -> dict[str, np.ndarray]:
+    """Every leaf of `tree` as a NumPy copy in host memory, by path; a
+    sharded leaf gathered whole first, which every rank takes part in.
+    With `keep` False the gathers run and nothing is copied."""
+    from repro_torch.runtime.sharding import gather
+    out = {}
+    for k, v in tree_paths(tree):
+        if isinstance(v, torch.Tensor):
+            full = gather(v)
+            if keep:
+                out[k] = full.detach().to("cpu", copy=True).numpy()
+        elif keep:
+            out[k] = np.array(v, copy=True)
+    return out
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, mesh_shape=None,
          blocking: bool = True) -> threading.Thread | None:
-    """Checkpoint `tree` at `step`. Returns the writer thread if async."""
-    host = _snapshot(tree)
+    """Checkpoint `tree` at `step`. Returns the writer thread if async.
+    Under a process group every rank calls it: a sharded leaf is gathered
+    whole, and rank 0 alone snapshots and writes."""
+    host = _snapshot(tree, keep=_rank() == 0)
+    if _rank() != 0:
+        return None
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = f"{final}.tmp-{os.getpid()}"
 
@@ -103,12 +112,16 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, step: int, like: Any,
-            device: str | torch.device | None = None) -> Any:
+            device: str | torch.device | None = None, shardings: Any = None) -> Any:
     """A new tree shaped as `like` from the checkpoint at `step`: each leaf
     in its `like` leaf's dtype, on `device` (else that leaf's device), with
-    its `requires_grad`. Raises ValueError on a missing leaf or a shape
-    that differs."""
+    its `requires_grad`. A leaf with a `Sharding` in `shardings` (a tree
+    shaped as `like`), or a sharded `like` leaf without one, comes back as
+    a DTensor holding this rank's block of the saved array, on its mesh's
+    device. Raises ValueError on a missing leaf or a shape that differs."""
+    from repro_torch.runtime import sharding as shd
     data = np.load(os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz"))
+    specs = dict(tree_paths(shardings)) if shardings is not None else {}
 
     def leaf(key: str, t: torch.Tensor) -> torch.Tensor:
         if key not in data:
@@ -116,10 +129,16 @@ def restore(ckpt_dir: str, step: int, like: Any,
         arr = data[key]
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs {tuple(t.shape)}")
-        out = torch.from_numpy(arr).to(device if device is not None else t.device, t.dtype)
+        full = torch.from_numpy(arr)
+        sharding = specs.get(key)
+        if sharding is None and shd.is_sharded(t):
+            sharding = shd.Sharding(t.device_mesh, shd.spec_of(t))
+        if sharding is not None:
+            return shd.distribute(full.to(shd.mesh_device(sharding.mesh), t.dtype), sharding)
+        out = full.to(device if device is not None else t.device, t.dtype)
         return out.requires_grad_(t.requires_grad)
 
-    return _rebuild(like, leaf)
+    return tree_map_with_path(leaf, like)
 
 
 class CheckpointManager:
@@ -146,6 +165,8 @@ class CheckpointManager:
             self._pending = None
 
     def _gc(self):
+        if _rank() != 0:
+            return
         steps = sorted(int(m.group(1)) for m in
                        (re.fullmatch(r"step_(\d+)", n) for n in os.listdir(self.dir)) if m)
         # one save is in flight: keep-1 on disk now -> keep once it lands
@@ -154,7 +175,13 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"), ignore_errors=True)
 
     def restore_latest(self, like: Any, device=None) -> tuple[int | None, Any]:
+        """(the newest complete step, `like` restored from it) or (None,
+        None). Under a process group every rank waits here until rank 0's
+        writer has finished, so that all of them read the same step."""
+        import torch.distributed as dist
         self.wait()
+        if dist.is_available() and dist.is_initialized():
+            dist.barrier()
         step = latest_step(self.dir)
         if step is None:
             return None, None

@@ -1,7 +1,8 @@
 """Config registry: get_config(name) / list_archs() / supported_shapes(cfg).
 
-Counterpart of `repro.configs`, copied (the reference's `refmlm_filter`
-application config is not an architecture and is not carried).
+Counterpart of `repro.configs`, copied. The paper's filter application
+config is `repro_torch.configs.refmlm_filter.CONFIG`, beside the
+architectures and not in this registry, as in the reference.
 
 Arch ids match the assignment table; `--arch <id>` in the launchers resolves
 through here. Shape-cell applicability (the long_500k / decode skips) is

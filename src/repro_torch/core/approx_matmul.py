@@ -31,17 +31,23 @@ beyond it. The reference's `row_chunk` and `precision` arguments have no
 counterpart: chunking does not change the result, and float32 matmuls run
 in full float32 (TF32 is off for matmuls by default in PyTorch).
 
+The activation operand `a` is quantized inside `core.collectives.
+batch_rows()`: its rows are batch rows, so in the data-parallel train
+step, which splits them over the ranks, its abs-max spans every rank's
+rows (`core.quant`); the weight `b` is whole on every rank.
+
 The kernel modules are imported inside the functions that call them, as in
 the reference: they import `repro_torch.core`, which imports this module.
 """
 from __future__ import annotations
 
 import re
-from functools import partial
+from functools import lru_cache, partial
 from typing import Callable
 
 import torch
 
+from repro_torch.core.collectives import batch_rows
 from repro_torch.core.mitchell import babic_ecc, mitchell
 from repro_torch.core.odma import odma
 from repro_torch.core.platform import resolve_device
@@ -106,16 +112,32 @@ def row_slices(m: int, k: int, n: int) -> list[slice]:
     return [slice(lo, lo + rows) for lo in range(0, m, rows)]
 
 
+#: widths whose plain LNS route looks its products up in a table of all
+#: 2**(2 * nbits) magnitude pairs (65536 at 8 bits), built by the same
+#: multiplier, so the bytes are the element function's
+TABLE_NBITS = 8
+
+
+@lru_cache(maxsize=None)
+def _product_table(method: str, nbits: int, device: torch.device) -> torch.Tensor:
+    v = torch.arange(1 << nbits, dtype=torch.int32, device=device)
+    return scalar_multiplier(method, nbits)(v[:, None], v[None, :]).reshape(-1)
+
+
 def _lns_matmul(a: torch.Tensor, b: torch.Tensor, method: str,
                 nbits: int) -> torch.Tensor:
     """Sign-magnitude LNS matmul: out[m,n] = sum_k mult(|a|,|b|) * sign,
     the products summed in float32 like the reference's."""
     mult = scalar_multiplier(method, nbits)
-    qa = quantize_magnitude(a, nbits)
+    with batch_rows():
+        qa = quantize_magnitude(a, nbits)
     qb = quantize_magnitude(b, nbits)
     sa = (qa.magnitude * qa.sign).reshape(-1, a.shape[-1])
     sb = qb.magnitude * qb.sign
     mag_b, sgn_b = sb.abs()[None], torch.sign(sb)[None]
+    if nbits <= TABLE_NBITS:       # every product of two magnitudes, looked up
+        table = _product_table(method, nbits, a.device)
+        mult = lambda x, y: table[x * (1 << nbits) + y]     # noqa: E731
     out = torch.empty((sa.shape[0], sb.shape[1]), dtype=torch.float32,
                       device=a.device)
     for rows in row_slices(*sa.shape, sb.shape[1]):
@@ -138,7 +160,8 @@ def limb_matmul(a: torch.Tensor, b: torch.Tensor, *, karatsuba: bool,
         karatsuba_matmul_kernel,
         karatsuba_matmul_plain,
     )
-    da, sa = quantize_limbs(a.reshape(-1, a.shape[-1]), karatsuba=karatsuba)
+    with batch_rows():
+        da, sa = quantize_limbs(a.reshape(-1, a.shape[-1]), karatsuba=karatsuba)
     db, sb = quantize_limbs(b, karatsuba=karatsuba)
     partials = karatsuba_matmul_kernel if kernel else karatsuba_matmul_plain
     hh, mid, ll = partials(da.hi, da.lo, db.hi, db.lo, karatsuba=karatsuba)
@@ -154,7 +177,8 @@ def kernel_lns_matmul(a: torch.Tensor, b: torch.Tensor, *, nbits: int,
     rescaled in float32. Like the reference's kernel route it takes any
     `nbits`; the reference route's multipliers stop at 16."""
     from repro_torch.kernels.mitchell_matmul import mitchell_matmul_kernel
-    qa = quantize_magnitude(a, nbits)
+    with batch_rows():
+        qa = quantize_magnitude(a, nbits)
     qb = quantize_magnitude(b, nbits)
     sa = (qa.magnitude * qa.sign).reshape(-1, a.shape[-1])
     acc = mitchell_matmul_kernel(sa, qb.magnitude * qb.sign, num_ecc=num_ecc,
@@ -165,7 +189,8 @@ def kernel_lns_matmul(a: torch.Tensor, b: torch.Tensor, *, nbits: int,
 
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels.karatsuba_matmul import int_matmul
-    qa = quantize_magnitude(a, 7)          # int8 symmetric: magnitudes < 128
+    with batch_rows():
+        qa = quantize_magnitude(a, 7)      # int8 symmetric: magnitudes < 128
     qb = quantize_magnitude(b, 7)
     acc = int_matmul((qa.magnitude * qa.sign).reshape(-1, a.shape[-1]),
                      qb.magnitude * qb.sign)

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.collectives import rows_max
+
 
 class QuantizedMagnitude(NamedTuple):
     magnitude: torch.Tensor    # int32, in [0, 2^nbits)
@@ -34,9 +36,13 @@ def f32(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def _absmax_scale(x: torch.Tensor, qlim: float, axis: int | None) -> torch.Tensor:
-    """max(|x|, 1e-30) / qlim in float32, over all of x or along `axis`."""
+    """max(|x|, 1e-30) / qlim in float32, over all of x or along `axis`.
+    An operand of batch rows (`collectives.batch_rows`) while the rows
+    are split over the ranks takes the max over every rank's rows, as the
+    reference's does over its global batch (`collectives.rows_max`);
+    anything else, x's own."""
     absx = x.abs().to(torch.float32)
-    amax = absx.max() if axis is None else absx.amax(dim=axis, keepdim=True)
+    amax = rows_max(absx) if axis is None else absx.amax(dim=axis, keepdim=True)
     return torch.maximum(amax, f32(1e-30, x)) / f32(qlim, x)
 
 

@@ -1,4 +1,5 @@
-"""Tree paths: the '/'-joined path of every leaf of a nested tree.
+"""Tree paths: the '/'-joined path of every leaf of a nested tree, and a
+map over the leaves that keeps the tree's structure.
 
 A tree is nested dicts, lists, tuples and NamedTuples; None is an empty
 subtree and anything else is a leaf. A path joins the dict keys, list
@@ -30,4 +31,21 @@ def tree_paths(tree: Any, prefix: str = "", *,
             for pair in tree_paths(v, f"{prefix}/{k}" if prefix else k, sort_keys=sort_keys)]
 
 
-__all__ = ["tree_paths"]
+def tree_map_with_path(fn, tree: Any, prefix: str = "") -> Any:
+    """`tree` with each leaf replaced by fn(path, leaf); None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f),
+                                               f"{prefix}/{f}" if prefix else f)
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+__all__ = ["tree_map_with_path", "tree_paths"]

@@ -11,10 +11,20 @@ The reduced config by default (`--full` for the published one, `--d-model`
 to widen the reduced one); the crash-safe loop (`runtime.fault.
 run_training`: restart from the latest checkpoint, straggler monitoring)
 over deterministic data (`data.tokens.lm_batch`). Weights are random,
-drawn from a generator seeded with 0. The reference's host mesh and
-sharded state have no counterpart in one process on one device: the
-checkpoints record a (1, 1) mesh. Checkpoints go to `--ckpt-dir`, by
+drawn from a generator seeded with 0. Checkpoints go to `--ckpt-dir`, by
 default `repro_torch_ckpt` in the temporary directory.
+
+Launched plainly it trains in one process on one device, and the
+checkpoints record a (1, 1) mesh. Under `torchrun` (`WORLD_SIZE` and
+`RANK` in the environment) it is the reference's multi-device trainer:
+it initializes the process group (NCCL on the cards, one a rank by
+`LOCAL_RANK`; gloo with `--device cpu`), builds `launch.mesh.
+make_host_mesh()` over the world and trains the sharded state
+(`make_train_state` / `make_train_step` with the mesh) through the same
+loop; rank 0 prints and writes the checkpoints. A process group that does
+not come up raises.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train [flags]
 """
 from __future__ import annotations
 
@@ -31,11 +41,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.platform import resolve_device
 from repro_torch.data.tokens import lm_batch
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import build_model
 from repro_torch.runtime.fault import FaultInjector, StragglerMonitor, run_training
 from repro_torch.runtime.train_lib import make_train_state, make_train_step
 
-#: the mesh a one-device run records in its checkpoints
+#: the mesh a one-process run records in its checkpoints
 MESH_SHAPE = (1, 1)
 
 
@@ -64,12 +75,21 @@ def main(argv: list[str] | None = None):
             cfg = dataclasses.replace(
                 cfg, d_model=args.d_model, head_dim=args.d_model // cfg.num_heads,
                 d_ff=2 * args.d_model if cfg.d_ff else 0)
+    mesh = None
     device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        import torch.distributed as dist
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        mesh = make_host_mesh()
+    rank0 = mesh is None or mesh.get_rank() == 0
     model = build_model(cfg, device)
-    train_step = make_train_step(model, total_steps=args.steps)
+    train_step = make_train_step(model, total_steps=args.steps, mesh=mesh)
 
     def init_state():
-        return make_train_state(model, torch.Generator(device).manual_seed(0))
+        return make_train_state(model, torch.Generator(device).manual_seed(0), mesh)
 
     def batch_fn(step):
         return lm_batch(cfg, batch=args.batch, seq=args.seq, step=step)
@@ -85,14 +105,20 @@ def main(argv: list[str] | None = None):
             print(f"step {step:5d} loss {float(m['loss']):.4f} "
                   f"lr {float(m['lr']):.2e} |g| {float(m['grad_norm']):.3f}")
 
-    state = run_training(
-        train_step=train_step, init_state=init_state, batch_fn=batch_fn,
-        num_steps=args.steps, ckpt=ckpt, mesh_shape=MESH_SHAPE,
-        injector=injector, straggler=monitor, on_metrics=on_metrics)
-    n_params = model.count_params(state.params)
-    print(f"done: {args.steps} steps, {n_params:,} params, "
-          f"loss {losses[0]:.4f} -> {np.mean(losses[-10:]):.4f}, "
-          f"stragglers flagged: {len(monitor.flagged)}")
+    try:
+        state = run_training(
+            train_step=train_step, init_state=init_state, batch_fn=batch_fn,
+            num_steps=args.steps, ckpt=ckpt,
+            mesh_shape=MESH_SHAPE if mesh is None else tuple(mesh.shape),
+            injector=injector, straggler=monitor, on_metrics=on_metrics)
+        if rank0:
+            n_params = model.count_params(state.params)
+            print(f"done: {args.steps} steps, {n_params:,} params, "
+                  f"loss {losses[0]:.4f} -> {np.mean(losses[-10:]):.4f}, "
+                  f"stragglers flagged: {len(monitor.flagged)}, final loss {losses[-1]!r}")
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
     return state, losses
 
 

@@ -33,6 +33,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.platform import resolve_device
+from repro_torch.core.collectives import all_reduce, rows_are_split
+from repro_torch.core.quant import f32
 from repro_torch.models.layers import dense, dense_init
 from repro_torch.models.transformer import backbone_apply, backbone_init, init_caches
 
@@ -120,7 +122,15 @@ def build_model(cfg, device: str | torch.device | None = None, *,
         is gathered in the logits' dtype (the reference's one-hot
         contraction, which adds that one logit to zeros); else the
         log-softmax in float32. A masked label's term is multiplied by 0, so
-        its gathered position (clamped to 0) never counts."""
+        its gathered position (clamped to 0) never counts.
+
+        While the data-parallel step splits the rows over the ranks
+        (`core.collectives.rows_are_split`), each rank's batch is its rows of the global batch, and the loss and
+        each metric are this rank's share of the global ones, which sum
+        over the ranks to them: the masked sum over the global count of
+        labels >= 0 (an all-reduce), the z-loss sum over the global token
+        count, the aux loss over the ranks' number (each rank's mean is
+        over as many whole chunks)."""
         logits, aux = forward(params, batch)
         labels = as_tensor(batch["labels"], torch.long)
         mask = (labels >= 0).to(torch.float32)
@@ -131,8 +141,15 @@ def build_model(cfg, device: str | torch.device | None = None, *,
         else:
             logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
             nll = -logp.gather(-1, idx)[..., 0]
-        zl = 1e-4 * torch.square(lse).mean()
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        if rows_are_split():
+            world = torch.distributed.get_world_size()
+            count = all_reduce(mask.sum())
+            zl = 1e-4 * (torch.square(lse).sum() / f32(lse.numel() * world, lse))
+            loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
+            aux = aux / f32(world, aux)
+        else:
+            zl = 1e-4 * torch.square(lse).mean()
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         total = loss + zl + 1e-2 * aux
         return total, {"ce": loss, "z_loss": zl, "moe_aux": aux}
 

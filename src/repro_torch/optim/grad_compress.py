@@ -10,14 +10,16 @@ scale of a segment leaf is taken over the whole stack of its layers
 (`repro_torch.optim.optimizers.Group`), and the residual keeps the stacked
 shape.
 
-The reference's `shard_map_allreduce_i8` (the int8 wire format of the
-data-parallel all-reduce) needs more than one shard and has no counterpart
-in one process on one card.
+`shard_map_allreduce_i8(x, mesh, axis)` is the reference's int8
+all-reduce, on the ranks of a `DeviceMesh` axis: the ranks agree on one
+scale first (an all-reduce of the abs-max, one float), then sum their int8
+payloads exactly in int32, so the mean is the reference's to the byte.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.collectives import all_reduce
 from repro_torch.core.quant import f32
 from repro_torch.optim.optimizers import Group
 
@@ -43,9 +45,24 @@ def compress_grads(grads: list[list[torch.Tensor]], ef: dict,
     return out, new_ef
 
 
+def shard_map_allreduce_i8(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The mean over the ranks of `mesh`'s `axis` of their `x` (this
+    rank's rows), with an int8 wire format: max |x| over the ranks, the
+    scale max(smax, 1e-30) / 127, q = clamp(round(x / scale), -127, 127)
+    in int8, the int32 sum of q over the ranks, rescaled and divided by the
+    ranks' number. Every rank gets the same rows back."""
+    group = mesh.get_group(axis)
+    smax = all_reduce(x.abs().max().to(torch.float32), "max", group)
+    scale = torch.maximum(smax, f32(1e-30, x)) / f32(127.0, x)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    qsum = all_reduce(q.to(torch.int32), "sum", group)
+    n = f32(mesh.size(mesh.mesh_dim_names.index(axis)), x)
+    return qsum.to(torch.float32) * scale / n
+
+
 def init_error_feedback(groups: list[Group]) -> dict:
     return {g.key: torch.zeros(g.shape, dtype=torch.float32, device=g.params[0].device)
             for g in groups}
 
 
-__all__ = ["compress_grads", "init_error_feedback"]
+__all__ = ["compress_grads", "init_error_feedback", "shard_map_allreduce_i8"]

@@ -252,7 +252,16 @@ def run_training(
     restores the newest complete checkpoint into its shape and devices, if
     there is one; more than `max_restarts` faults re-raise. A step's one
     host sync reads its loss back (`metrics["loss"].item()`), so the step
-    time the straggler monitor sees is the device's too."""
+    time the straggler monitor sees is the device's too.
+
+    Under a process group every rank runs the loop with a sharded state
+    (`make_train_step(..., mesh=...)`); `mesh_shape` is the mesh's, and
+    only rank 0 calls `on_metrics`. An `InjectedFault` is a function of
+    the step, so every rank raises at the same one and restores the same
+    checkpoint (`CheckpointManager.restore_latest` waits for rank 0's
+    writer first)."""
+    import torch.distributed as dist
+    logs = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
     restarts = 0
     state = None
     while True:
@@ -277,7 +286,7 @@ def run_training(
                 dt = time.perf_counter() - t0
                 if straggler is not None:
                     straggler.record(step, dt)
-                if on_metrics is not None:
+                if on_metrics is not None and logs:
                     on_metrics(step, metrics)
                 ckpt.maybe_save(step + 1, state, mesh_shape=mesh_shape)
             ckpt.wait()

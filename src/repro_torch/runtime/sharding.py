@@ -1,0 +1,391 @@
+"""Logical-axis sharding rules -> per-leaf specs and DTensor placements for
+params, optimizer state, caches and batches; the collectives of the
+data-parallel train step.
+
+Counterpart of `repro.runtime.sharding`, with its rules copied as plain
+Python (DESIGN.md §6): batch over ("pod", "data"), parameters FSDP-sharded
+over "data" (and "pod" for the 340B+ configs) on their "embed"-like dim and
+over "model" on their heads / mlp / vocab / expert dim. Logical axes come
+from the parameter's tree path and resolve to mesh axes with the
+reference's divisibility fallback: a dim that does not divide by its
+mesh-axis product drops trailing axes until it does, and a mesh axis is
+never used twice in one spec.
+
+A spec is a tuple with one entry a dim: None, a mesh-axis name, or a tuple
+of names (the dim split over their product, the first axis major), the
+counterpart of a `PartitionSpec`. It resolves against anything whose
+`.shape` maps axis names to sizes (`repro_torch.launch.mesh`'s shape-only
+production meshes) or against a named `DeviceMesh`; `placements` turns it
+into the DTensor placements of a `DeviceMesh`.
+
+The trees are the port's. Keys and shapes are the reference's: a
+per-layer parameter takes the spec of its stacked leaf (`optimizers.Group`
+key and shape) less the leading "layers" entry, which is never sharded; the
+optimizer state and the error-feedback residual keep the stacked shapes and
+take the spec as it is. A per-layer cache the same, from the reference's
+stacked cache.
+
+The step's collectives (`all_reduce`, `gather`) are counted in
+`core.collectives.COLLECTIVES` by kind: calls and bytes, where a gather's
+bytes are the whole tensor it assembles and an all-reduce's the tensor it
+reduces.
+
+`activation_sharding_ctx()` is what the reference plants its activation
+constraints under; here it marks the batch rows as split over every rank
+of the world (`core.collectives.rows_split`), so that the reductions that
+span rows stay global: the quantizer's abs-max of an activation and the
+loss's counts. The reference's `shard_hint` has no counterpart: a
+data-parallel step computes on whole activations of its rows, and no
+partitioner reads a constraint.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core.collectives import (
+    COLLECTIVES,
+    all_reduce,
+    count_collective,
+    reset_collectives,
+    rows_split,
+)
+
+Spec = tuple
+
+
+# logical-name -> candidate mesh-axis tuples, tried in order (first divisible
+# prefix wins; empty tuple = replicate).
+def logical_rules(cfg, multi_pod: bool) -> dict[str | None, tuple[str, ...]]:
+    if multi_pod:
+        fsdp = (("pod", "data") if cfg.fsdp_pod else ("data",)) if cfg.fsdp else ()
+        batch = ("pod", "data")
+    else:
+        fsdp = ("data",) if cfg.fsdp else ()
+        batch = ("data",)
+    vocab = ("model",) if cfg.emb_vocab_sharded else ()
+    if cfg.prefer_dp:
+        # archs whose head counts do not divide the model axis (xlstm H=4):
+        # batch and params shard over (data, model); no tensor parallelism
+        batch = batch + ("model",)
+        fsdp = (fsdp + ("model",)) if cfg.fsdp else ()
+        return {"embed": fsdp, "tp": (), "expert": (), "vocab": (),
+                "batch": batch, "seq": (), "layers": (), None: ()}
+    return {
+        "embed": fsdp,          # FSDP dim
+        "tp": ("model",),       # tensor-parallel dim (heads/mlp/vocab)
+        "expert": ("model",),   # expert-parallel dim
+        "vocab": vocab,         # embedding-table row dim
+        "batch": batch,
+        "seq": (),              # sequence stays unsharded
+        "layers": (),           # stacked leading axis
+        None: (),
+    }
+
+
+# --------------------------------------------------------- logical specs ----
+_TP_OUT = ("wq", "wk", "wv", "wq_a", "wq_b", "wkv_a", "wkv_b", "up_proj",
+           "in_proj", "w_in", "w_if", "wi", "wg", "head", "frame_proj",
+           "img_proj")
+_TP_IN = ("wo", "down_proj", "out_proj", "w_out")
+
+#: optimizer-state wrapper keys, stripped from a path before its logical axes
+_OPT_KEYS = ("m", "v", "vr", "vc", "mu", "nu", "count", "ef")
+
+
+def _param_logical(path: tuple[str, ...], ndim: int) -> tuple[str | None, ...]:
+    """Logical axes for one parameter leaf, from its tree path."""
+    names = [p for p in path if not p.isdigit()]
+    if not names:                        # e.g. optimizer "count" scalar
+        return tuple(None for _ in range(ndim))
+    leaf = names[-1]
+    parent = names[-2] if len(names) >= 2 else ""
+    inside_layers = "segments" in names
+    key = parent if leaf in ("w", "b") else leaf   # nearest named ancestor
+    if key == "emb":
+        base: tuple[str | None, ...] = ("vocab", "embed")
+    elif key == "router":
+        base = ("embed", None)
+    elif key in ("wi", "wg") and ndim - (2 if not inside_layers else 3) >= 1:
+        base = ("expert", "embed", None)         # stacked experts (E, D, F)
+    elif key == "wo" and ndim - (2 if not inside_layers else 3) >= 1:
+        base = ("expert", None, "embed")
+    elif key in _TP_OUT:
+        base = ("embed", "tp") if leaf != "b" else ("tp",)
+    elif key in _TP_IN:
+        base = ("tp", "embed") if leaf != "b" else (None,)
+    elif key == "conv_w":
+        base = (None, "tp")
+    elif key in ("a_log", "dt_bias", "d_skip"):
+        base = ("tp",)
+    elif key == "r_rec":
+        base = ("tp", None, None)
+    else:
+        base = tuple(None for _ in range(ndim))
+    if inside_layers:
+        base = ("layers", *base)
+    if len(base) < ndim:
+        base = base + tuple(None for _ in range(ndim - len(base)))
+    return base[:ndim]
+
+
+_CACHE_LOGICAL = {
+    "k": ("batch", "seq", "tp", None),
+    "v": ("batch", "seq", "tp", None),
+    "k_img": ("batch", "seq", "tp", None),
+    "v_img": ("batch", "seq", "tp", None),
+    "c_kv": ("batch", "seq", None),
+    "k_rope": ("batch", "seq", None, None),
+    "ssm": ("batch", "tp", None, None),
+    "conv": ("batch", None, "tp"),
+    "c": ("batch", "tp", None, None),
+    "n": ("batch", "tp", None),
+    "m": ("batch", "tp"),
+    "h": ("batch", "tp", None),
+}
+
+
+def _cache_logical(path: tuple[str, ...], ndim: int) -> tuple[str | None, ...]:
+    leaf = path[-1] if path else ""
+    base = _CACHE_LOGICAL.get(leaf, tuple(None for _ in range(ndim - 1)))
+    base = ("layers", *base)                     # stacked per-segment axis
+    if len(base) < ndim:
+        base = base + tuple(None for _ in range(ndim - len(base)))
+    return base[:ndim]
+
+
+# ------------------------------------------------------------- resolver -----
+def axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a named `DeviceMesh` or a shape-only mesh."""
+    if hasattr(mesh, "mesh_dim_names") and not isinstance(mesh.shape, dict):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def _resolve(logical: tuple[str | None, ...], shape: tuple[int, ...],
+             rules: dict, mesh) -> Spec:
+    sizes = axis_sizes(mesh)
+    used: set[str] = set()
+    out: list = []
+    for name, dim in zip(logical, shape):
+        pick: list[str] = []
+        prod = 1
+        for ax in rules.get(name, ()):
+            if ax in used:
+                break
+            if dim % (prod * sizes[ax]) == 0:
+                pick.append(ax)
+                prod *= sizes[ax]
+            else:
+                break
+        used.update(pick)
+        out.append(tuple(pick) if len(pick) > 1 else (pick[0] if pick else None))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's spec on a mesh: the `NamedSharding` counterpart (a leaf of
+    the trees below, not a node)."""
+    mesh: Any
+    spec: Spec
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def placements(spec: Spec, mesh) -> list:
+    """The DTensor placements of `spec` on a named `DeviceMesh`: Shard(d) on
+    every mesh dim that splits tensor dim d (a dim on two axes, such as
+    ("pod", "data"), is Shard(d) on both, in mesh order: the first axis
+    major, as in JAX), Replicate() on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        pos = [names.index(ax) for ax in spec_axes(entry)]
+        if pos != sorted(pos):
+            raise ValueError(f"spec {spec}: dim {d}'s axes are not in the mesh's order {names}")
+        for p in pos:
+            out[p] = Shard(d)
+    return out
+
+
+def spec_of(t) -> Spec:
+    """The spec of a DTensor, from its placements (the inverse of
+    `placements`)."""
+    from torch.distributed.tensor import Shard
+    entries: list[list[str]] = [[] for _ in range(t.ndim)]
+    for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if isinstance(p, Shard):
+            entries[p.dim].append(name)
+    return tuple(None if not e else (e[0] if len(e) == 1 else tuple(e)) for e in entries)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's blocks live on: its current card for a
+    "cuda" mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+# ---------------------------------------------------------- port's trees ----
+def _path(key: str) -> tuple[str, ...]:
+    return tuple(key.split("/")) if key else ()
+
+
+def _map(tree, fn):
+    from repro_torch.core.tree import tree_map_with_path
+    return tree_map_with_path(fn, tree)
+
+
+def param_shardings(params, cfg, mesh, *, multi_pod: bool):
+    """A `Sharding` for each leaf of the port's LM params (one dict per
+    layer), from its stacked leaf's path and shape."""
+    from repro_torch.optim.optimizers import param_groups
+    rules = logical_rules(cfg, multi_pod)
+    by_id = {}
+    for g in param_groups(params, cfg):
+        spec = _resolve(_param_logical(_path(g.key), len(g.shape)), g.shape, rules, mesh)
+        for t in g.params:
+            by_id[id(t)] = spec[1:] if g.stacked else spec
+    return _map(params, lambda _, t: Sharding(mesh, by_id[id(t)]))
+
+
+def _stacked_shardings(tree, cfg, mesh, multi_pod: bool, strip: tuple[str, ...]):
+    rules = logical_rules(cfg, multi_pod)
+
+    def one(path: str, t):
+        names = tuple(n for n in _path(path) if n not in strip)
+        return Sharding(mesh, _resolve(_param_logical(names, t.ndim), tuple(t.shape),
+                                       rules, mesh))
+    return _map(tree, one)
+
+
+def opt_shardings(opt, cfg, mesh, *, multi_pod: bool):
+    """The optimizer state {"count", "state": {path: {"m", "v"} ...}} in its
+    stacked shapes: the param's path with the wrapper keys stripped; the
+    factored Adafactor statistics have fewer dims, and the divisibility
+    fallback takes what is left."""
+    return _stacked_shardings(opt, cfg, mesh, multi_pod, _OPT_KEYS)
+
+
+def ef_shardings(ef, cfg, mesh, *, multi_pod: bool):
+    """The error-feedback residual {path: stacked array}, as its params."""
+    return None if ef is None else _stacked_shardings(ef, cfg, mesh, multi_pod, ())
+
+
+def cache_shardings(caches, cfg, mesh, *, multi_pod: bool):
+    """The port's caches (a list of per-layer dicts): each leaf the spec of
+    the reference's stacked cache less its "layers" entry."""
+    rules = logical_rules(cfg, multi_pod)
+
+    def one(path: str, t):
+        logical = _cache_logical(_path(path)[-1:], t.ndim + 1)[1:]
+        return Sharding(mesh, _resolve(logical, tuple(t.shape), rules, mesh))
+    return _map(caches, one)
+
+
+def batch_shardings(batch, cfg, mesh, *, multi_pod: bool):
+    rules = logical_rules(cfg, multi_pod)
+    return _map(batch, lambda _, x: Sharding(mesh, _resolve(
+        ("batch",) + (None,) * (len(x.shape) - 1), tuple(x.shape), rules, mesh)))
+
+
+def scalar_sharding(mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+# ------------------------------------------------------ sharded tensors -----
+def shard_of(full: torch.Tensor, mesh, placements_) -> torch.Tensor:
+    """This rank's block of `full` under `placements_` (no communication):
+    mesh dims in order, so the first of two on one tensor dim is major."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    t = full
+    for i, p in enumerate(placements_):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            size = t.shape[p.dim] // n
+            t = t.narrow(p.dim, coord[i] * size, size)
+    return t
+
+
+def distribute(full: torch.Tensor, sharding: Sharding):
+    """`full` (whole on every rank) as a DTensor holding this rank's block
+    (a copy); a 0-d leaf stays a plain tensor, whole on every rank."""
+    from torch.distributed.tensor import DTensor
+    if full.ndim == 0:
+        return full.detach()
+    pl = placements(sharding.spec, sharding.mesh)
+    local = shard_of(full.detach(), sharding.mesh, pl).clone()
+    return DTensor.from_local(local, sharding.mesh, pl, run_check=False)
+
+
+def is_sharded(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def gather(t) -> torch.Tensor:
+    """The whole tensor of a DTensor: an all-gather over each mesh dim of
+    more than one rank that shards it, innermost first. Every rank of the
+    mesh calls it, in the same order. A plain tensor comes back as it is."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    if not is_sharded(t):
+        return t
+    mesh, pl = t.device_mesh, t.placements
+    local = out = t.to_local()
+    for i in reversed(range(len(pl))):
+        if not isinstance(pl[i], Shard) or mesh.size(i) == 1:
+            continue
+        n, d = mesh.size(i), pl[i].dim
+        src = out.movedim(d, 0).contiguous()
+        buf = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        dist.all_gather_into_tensor(buf, src, group=mesh.get_group(i))
+        count_collective("all_gather", buf)
+        out = buf.movedim(0, d)
+    return out.clone() if out is local else out
+
+
+#: elements of a grad bucket (256 MiB of float32): one all-reduce each
+BUCKET_ELEMENTS = 1 << 26
+
+
+def all_reduce_coalesced(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """The sums over `group` of `tensors` (float32), in buckets of at most
+    BUCKET_ELEMENTS elements (a larger tensor alone), each one all-reduce
+    of a flat copy."""
+    out: list[torch.Tensor] = [None] * len(tensors)
+    i = 0
+    while i < len(tensors):
+        j, n = i, 0
+        while j < len(tensors) and (j == i or n + tensors[j].numel() <= BUCKET_ELEMENTS):
+            n += tensors[j].numel()
+            j += 1
+        flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors[i:j]])
+        all_reduce(flat, "sum", group)
+        for k, piece in zip(range(i, j), flat.split([t.numel() for t in tensors[i:j]])):
+            out[k] = piece.view(tensors[k].shape)
+        i = j
+    return out
+
+
+# ------------------------------------------------ activation context --------
+def activation_sharding_ctx():
+    """While active, the batch rows are split over every rank of the world
+    (the mesh holds them all): `core.collectives.rows_split`."""
+    return rows_split()
+
+
+__all__ = ["COLLECTIVES", "Sharding", "activation_sharding_ctx", "all_reduce",
+           "all_reduce_coalesced", "axis_sizes", "batch_shardings", "cache_shardings",
+           "distribute", "ef_shardings", "gather", "is_sharded", "logical_rules",
+           "mesh_device", "opt_shardings", "param_shardings", "placements", "reset_collectives",
+           "scalar_sharding", "shard_of", "spec_of"]

@@ -17,16 +17,38 @@ zeros, as `jax.grad` gives, so weight decay still moves it. With
 microbatches, and the reference's order is kept: zeros, then + each
 microbatch's grads, then / k; the losses summed, then / k; the last
 microbatch's metrics.
+
+With a `mesh` (a named `DeviceMesh` over the process group's ranks,
+`repro_torch.launch.mesh.make_host_mesh`) the state at rest is sharded by
+the reference's rules (`runtime.elastic.state_shardings`: params,
+optimizer state and residual are DTensors holding this rank's block; the
+step and the optimizer's count stay whole), and the step is data-parallel
+over every rank of the world. It gathers the params whole, takes this
+rank's rows of the global batch (of each global microbatch), and keeps
+every reduction that spans rows global, as the reference's GSPMD step
+does: the quantizer's abs-max of each activation (`core.quant`), the
+loss's counts (`Model.loss_fn`), the MoE chunks (each rank's tokens must
+be whole chunks of the global stream, or ValueError). Then the grads are
+summed over the ranks (`sharding.all_reduce_coalesced`), and every rank
+holds the full, reduced grads: grad_compress, the grad norm and Adafactor
+run on them as on one device (each rank then keeping its block), AdamW on
+each rank's block (element-wise, so exact). The metrics are global. The
+"model" axis shards state at rest only: no tensor-parallel compute and no
+per-layer gather (ROADMAP).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch.core.quant import f32
+from repro_torch.core.tree import tree_map_with_path, tree_paths
 from repro_torch.optim import cosine_schedule, get_optimizer, param_groups
 from repro_torch.optim.grad_compress import compress_grads, init_error_feedback
+from repro_torch.optim.optimizers import Group
+from repro_torch.runtime import sharding as shd
 
 
 class TrainState(NamedTuple):
@@ -36,9 +58,13 @@ class TrainState(NamedTuple):
     ef: Any | None            # error-feedback residual (grad_compress only)
 
 
-def make_train_state(model, gen: torch.Generator) -> TrainState:
+def make_train_state(model, gen: torch.Generator, mesh=None) -> TrainState:
     """Fresh params from `gen` (on the model's device), a zero optimizer
-    state and, under `cfg.grad_compress`, a zero residual."""
+    state and, under `cfg.grad_compress`, a zero residual. With a `mesh`
+    every rank draws the same state from the same seed and keeps its
+    blocks (`shard_state`)."""
+    if mesh is not None:
+        return shard_state(make_train_state(model, gen), model.cfg, mesh)
     params = model.init(gen)
     groups = param_groups(params, model.cfg)
     for group in groups:
@@ -47,6 +73,19 @@ def make_train_state(model, gen: torch.Generator) -> TrainState:
     opt = get_optimizer(model.cfg.optimizer).init(groups)
     ef = init_error_feedback(groups) if model.cfg.grad_compress else None
     return TrainState(torch.zeros((), dtype=torch.int32, device=model.device), params, opt, ef)
+
+
+def multi_pod(mesh) -> bool:
+    return "pod" in mesh.mesh_dim_names
+
+
+def shard_state(state: TrainState, cfg, mesh) -> TrainState:
+    """A whole `TrainState` (the same on every rank) as this rank's blocks
+    on `mesh`, by `state_shardings`."""
+    from repro_torch.runtime.elastic import state_shardings
+    shardings = state_shardings(state, cfg, mesh, multi_pod=multi_pod(mesh))
+    specs = dict(tree_paths(shardings))
+    return tree_map_with_path(lambda path, t: shd.distribute(t, specs[path]), state)
 
 
 def grads_of(model, params, batch: dict, leaves: list[torch.Tensor]):
@@ -60,41 +99,75 @@ def grads_of(model, params, batch: dict, leaves: list[torch.Tensor]):
 
 
 def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
-                    total_steps: int = 10_000) -> Callable:
+                    total_steps: int = 10_000, mesh=None) -> Callable:
+    """The step of the module docstring; one body for both: with a `mesh`
+    it gathers the params, takes this rank's rows, sums the losses, the
+    metrics and the grads over the ranks, and writes its blocks back."""
     cfg = model.cfg
     optimizer = get_optimizer(cfg.optimizer)
     lr_fn = cosine_schedule(peak_lr, warmup, total_steps)
+    if mesh is not None:
+        import torch.distributed as dist
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if mesh.size() != world:
+            raise ValueError(f"the mesh holds {mesh.size()} of the world's {world} ranks")
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        groups = param_groups(state.params, cfg)
-        leaves = [t for group in groups for t in group.params]
         k = cfg.microbatches
-        if k > 1:
+        if mesh is None:
             n = len(next(iter(batch.values()))) // k
+            per, first, params = n, 0, state.params
+        else:
+            n, per = row_split(cfg, batch, world)
+            first = rank * per
+            params = tree_map_with_path(
+                lambda _, t: shd.gather(t).detach().requires_grad_(True), state.params)
+        groups = param_groups(params, cfg)
+        leaves = [t for group in groups for t in group.params]
+        acc = loss_sum = None
+        if k > 1:                       # the reference's order: zeros, + each microbatch
             acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        with contextlib.nullcontext() if mesh is None else shd.activation_sharding_ctx():
             for j in range(k):
+                lo = j * n + first
                 loss, metrics, grads = grads_of(
-                    model, state.params, {key: x[j * n:(j + 1) * n] for key, x in batch.items()},
-                    leaves)
-                acc = [a + g for a, g in zip(acc, grads)]
-                loss_sum = loss_sum + loss
+                    model, params, {key: x[lo:lo + per] for key, x in batch.items()}, leaves)
+                acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+        if mesh is not None:            # each rank's shares -> the global sums
+            names = sorted(metrics)
+            sums = shd.all_reduce(torch.stack([loss_sum, *(metrics[m] for m in names)])
+                                  .to(torch.float32))
+            loss_sum, metrics = sums[0], {m: sums[1 + i] for i, m in enumerate(names)}
+            acc = shd.all_reduce_coalesced(acc)
+        loss = loss_sum
+        if k > 1:
             kf = f32(k, loss_sum)
-            flat = [a / kf for a in acc]
+            acc = [a / kf for a in acc]
             loss = loss_sum / kf
-        else:
-            loss, metrics, flat = grads_of(model, state.params, batch, leaves)
         grads, i = [], 0
         for group in groups:
-            grads.append(flat[i:i + len(group.params)])
+            grads.append(acc[i:i + len(group.params)])
             i += len(group.params)
 
         new_ef = state.ef
         if cfg.grad_compress:
-            grads, new_ef = compress_grads(grads, state.ef, groups)
+            grads, ef = compress_grads(grads, _whole(state.ef), groups)
+            new_ef = ef if mesh is None else _keep(state.ef, ef)
 
         lr = lr_fn(state.step)
-        optimizer.update(grads, state.opt, groups, lr)
+        if mesh is None or cfg.optimizer == "adamw":    # in place: AdamW is element-wise
+            at_rest = groups if mesh is None else param_groups(state.params, cfg)
+            optimizer.update([[_block(g, t) for g, t in zip(gs, group.params)]
+                              for gs, group in zip(grads, at_rest)],
+                             {"count": state.opt["count"], "state": _local(state.opt["state"])},
+                             [Group(g.key, _local(g.params), g.stacked) for g in at_rest], lr)
+        else:                           # couples the stack: on the whole, then kept
+            opt = {"count": state.opt["count"], "state": _whole(state.opt["state"])}
+            optimizer.update(grads, opt, groups, lr)
+            _keep(state.params, params)
+            _keep(state.opt["state"], opt["state"])
         gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for gs in grads for g in gs))
         out_metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm, **metrics}
         return TrainState(state.step + 1, state.params, state.opt, new_ef), out_metrics
@@ -102,4 +175,52 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
     return train_step
 
 
-__all__ = ["TrainState", "grads_of", "make_train_state", "make_train_step"]
+def row_split(cfg, batch: dict, world: int) -> tuple[int, int]:
+    """(rows of a global microbatch, rows of it a rank) for `batch` over
+    `world` ranks; ValueError where the rows, or the MoE layers' chunks,
+    do not split evenly (module docstring)."""
+    x = next(iter(batch.values()))
+    rows, k = len(x), cfg.microbatches
+    if rows % k or (rows // k) % world:
+        raise ValueError(f"a batch of {rows} rows in {k} microbatches does not split "
+                         f"over {world} ranks")
+    n = rows // k
+    per = n // world
+    if "moe" in cfg.block_kinds():
+        seq = x.shape[1]
+        chunk = min(cfg.moe_seq_chunk, n * seq)
+        if min(cfg.moe_seq_chunk, per * seq) != chunk or (per * seq) % chunk:
+            raise ValueError(
+                f"MoE chunks: a rank's {per} rows x {seq} tokens are not whole "
+                f"chunks of the global microbatch's {chunk}-token chunks "
+                f"(moe_seq_chunk {cfg.moe_seq_chunk}, {n} rows over {world} ranks)")
+    return n, per
+
+
+def _local(tree):
+    """This rank's blocks of a tree of state leaves: a DTensor's local
+    tensor, a plain leaf whole."""
+    return tree_map_with_path(lambda _, t: t.to_local() if shd.is_sharded(t) else t, tree)
+
+
+def _whole(tree):
+    """A tree of state leaves gathered whole (a plain leaf as it is)."""
+    return tree_map_with_path(lambda _, t: shd.gather(t), tree)
+
+
+def _block(full: torch.Tensor, t) -> torch.Tensor:
+    """This rank's block of `full`, as the state leaf `t` holds it."""
+    return shd.shard_of(full, t.device_mesh, t.placements) if shd.is_sharded(t) else full
+
+
+@torch.no_grad()
+def _keep(tree, full):
+    """Write this rank's blocks of the tree `full` into the state leaves of
+    `tree` (the same structure); -> `tree`."""
+    wholes = dict(tree_paths(full))
+    tree_map_with_path(lambda path, t: _local(t).copy_(_block(wholes[path], t)), tree)
+    return tree
+
+
+__all__ = ["TrainState", "grads_of", "make_train_state", "make_train_step", "row_split",
+           "shard_state"]

@@ -514,3 +514,25 @@ def test_int8_kernel_is_built_and_raises_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tkm.karatsuba_matmul_wide(a, a, b, b)
     assert tkm8.LAUNCHES == {"karatsuba_matmul_i8": 0}
+
+
+LNS_METHODS = ("mitchell", "mitchell_ecc1", "mitchell_ecc2", "mitchell_ecc3", "odma",
+               "refmlm", "refmlm_kom3")
+
+
+@pytest.mark.parametrize("nbits", [2, 4, tam.TABLE_NBITS])
+@pytest.mark.parametrize("method", LNS_METHODS)
+def test_lns_product_table_equals_the_element_function(method, nbits, monkeypatch):
+    """At nbits <= TABLE_NBITS the plain LNS route looks its products up in
+    a table of every magnitude pair: the same bytes as the element
+    function's route (TABLE_NBITS = 0), zeros, signs and a batched lhs
+    included."""
+    rng = np.random.default_rng(nbits)
+    a = _t(rng.standard_normal((3, 5, 40)).astype(np.float32))
+    b = _t(rng.standard_normal((40, 9)).astype(np.float32))
+    a[0, 0, :7] = 0.0
+    table = tam._lns_matmul(a, b, method, nbits)
+    monkeypatch.setattr(tam, "TABLE_NBITS", 0)
+    element = tam._lns_matmul(a, b, method, nbits)
+    assert table.shape == (3, 5, 9)
+    assert torch.equal(table, element)
