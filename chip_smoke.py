@@ -185,7 +185,24 @@ Phases, each fatal on failure:
                NCCL ranks of their own processes take one step on an
                (n, 1) mesh against the unmeshed step; on one card a line
                says it was not run;
- 18. times  -- each kernel with CUDA events (median after warm-up) beside
+ 18. dryrun -- the port's dry-run and roofline on the card: `python -m
+               repro_torch.launch.dryrun` for Qwen2-0.5B decode_32k on both
+               production meshes and train_4k on (16, 16), fake CUDA
+               tensors over a fake process group of 256 / 512 ranks, in
+               processes started after the build that run beside the
+               earlier phases (each must exit 0, every cell ok), each
+               record's terms on a [dryrun] line; the [train] phase's exact step counted the
+               same way (world 1) beside its measurements from this run:
+               the predicted step bound over the measured step ms
+               (roofline_fraction), model flops / (step s x 989e12) (MFU),
+               the predicted peak beside `max_memory_allocated`, with the
+               card's name and power limit; the meshed serve steps on a
+               (1, 1) NCCL mesh (in-process): prefill of 4 x 32 and 3 decode
+               steps of Qwen2-0.5B at 2 layers, full width, under exact and
+               mitchell, logits and caches byte-equal to the unmeshed
+               steps, every `mitchell_matmul` call equal to its plain
+               version;
+ 19. times  -- each kernel with CUDA events (median after warm-up) beside
                its plain version, its bound and, where PyTorch has one call
                that computes the same sums, that call; the matmul kernels at
                the full-width shape; `conv_pass_kcm`'s measurement variants
@@ -210,12 +227,13 @@ The line before the last is a JSON object naming the seven kernels with
 their numbers (and `serve_launches`, their launches in phase 13;
 `train_launches`, their launches in phase 16's twelve full-width steps,
 `mesh_train_launches` their launches in phase 17's nine,
+`serve_mesh_launches` their launches in phase 18's meshed serve runs,
 with `train_step_ms`, `train_step_bound_ms` and `train_step_device_ms`
 for `mitchell_matmul`, a step's calls summed at their shapes, the bound
 and the profiler's reading; for the
 matmul kernels `lm_launches`, their launches in phase 15's eighteen
 greedy runs (six LMs x three methods), and for
-`mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 18's
+`mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 19's
 sum over a Qwen2-0.5B decode step's shapes, `lm_decode_step_device_ms`,
 phase 15's profiler reading, and `decode_step_by_arch`, the three for each
 LM; for the
@@ -2492,6 +2510,196 @@ def phase_mesh(device: torch.device, max_err: dict, smi: str,
     return launches
 
 
+DRYRUN_CELLS = (("decode_32k", "both", 2), ("train_4k", "single", 1))   # (shape, mesh, ok)
+DRYRUN_TIMEOUT_S = 240
+DRYRUN_DECODE_STEPS = 3
+
+
+def dryrun_cli() -> tuple[str, list[subprocess.Popen]]:
+    """Start `python -m repro_torch.launch.dryrun` for TRAIN_ARCH's
+    DRYRUN_CELLS, each in a process of its own (fake CUDA tensors over a
+    fake process group of 256 or 512 ranks, on the host's cores while the
+    earlier phases use the card); -> (their directory, the processes),
+    both ended at exit if the script stops before `dryrun_records`."""
+    import atexit
+    import shutil
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for shape, mesh, _ in DRYRUN_CELLS:
+        log_path = os.path.join(out_dir, f"{shape}__{mesh}.log")
+        with open(log_path, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", TRAIN_ARCH,
+                 "--shape", shape, "--mesh", mesh, "--out", os.path.join(out_dir, "records")],
+                env=env, stdout=out, stderr=subprocess.STDOUT, text=True))
+
+    def end() -> None:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    atexit.register(end)
+    return out_dir, procs
+
+
+def dryrun_records(out_dir: str, procs: list[subprocess.Popen]) -> None:
+    """Wait for the DRYRUN_CELLS processes; each must exit 0 with its cells
+    ok; print every record's terms."""
+    for proc, (shape, mesh, n_ok) in zip(procs, DRYRUN_CELLS):
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            proc.kill()
+        out = Path(out_dir, f"{shape}__{mesh}.log").read_text()
+        assert proc.returncode == 0 and f"ok={n_ok} fail=0" in out, \
+            f"dryrun {shape} --mesh {mesh}: rc {proc.returncode}\n{out[-4000:]}"
+    records = os.path.join(out_dir, "records")
+    for name in sorted(os.listdir(records)):
+        rec = json.load(open(os.path.join(records, name)))
+        r, ma = rec["roofline"], rec["memory_analysis"]
+        log(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['chips']} cards, "
+            f"fake CUDA tensors, counted in {rec['compile_s']} s of host time): per card "
+            f"flops {r['flops']:.6e}, bytes {r['hbm_bytes']:.6e}, collective bytes "
+            f"{r['coll_bytes']:.6e} {{{', '.join(f'{k} {v:.6e}' for k, v in r['coll_breakdown'].items() if v)}}}; "
+            f"compute {r['compute_s'] * 1e3:.4f} ms, memory {r['memory_s'] * 1e3:.4f} ms, "
+            f"collective {r['collective_s'] * 1e3:.4f} ms: {r['bottleneck']}; useful "
+            f"{r['useful_ratio']:.4f}; arguments {ma['argument_size_in_bytes'] / 2**30:.3f} GiB, "
+            f"peak {(ma['argument_size_in_bytes'] + ma['temp_size_in_bytes']) / 2**30:.3f} GiB "
+            f"of {rec['card']['hbm_bytes'] / 2**30:.2f} (fits {rec['fits_hbm']})")
+
+
+def dryrun_train_cell(device: torch.device, smi: str, unmeshed: dict | None) -> None:
+    """Count the [train] phase's exact step (TRAIN_ARCH at full width and
+    depth, batch x seq TRAIN_SHAPE, world 1) on fake CUDA tensors and print
+    the count beside the [train] phase's measurements from this run."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.roofline.analysis import HW, analyze_step, model_flops
+
+    cfg = dataclasses.replace(lm_config(TRAIN_ARCH), matmul_method="exact")
+    shape = ShapeConfig("train", TRAIN_SHAPE[1], TRAIN_SHAPE[0], "train")
+    t0 = time.perf_counter()
+    counts, n_params = count_cell(cfg, shape, None, device.type)
+    secs = time.perf_counter() - t0
+    mf = model_flops(cfg, n_params, shape)
+    r = analyze_step(counts, model_flops_val=mf, chips=1)
+    bound_ms = max(r.compute_s, r.memory_s, r.collective_s) * 1e3
+    peak = counts.peak_bytes / 2**30
+    measured = (unmeshed or {}).get("exact")
+    assert counts.flops > 0 and counts.peak_bytes > 0 and not counts.kernels, counts
+    line = (f"[dryrun] {smi}: {TRAIN_ARCH} exact train step, batch {TRAIN_SHAPE[0]} x seq "
+            f"{TRAIN_SHAPE[1]}, world 1, counted on fake CUDA tensors in {secs:.1f} s: "
+            f"{n_params} parameters, model flops {mf:.6e}, counted flops {r.flops:.6e} "
+            f"({', '.join(f'{k} {v:.6e}' for k, v in counts.flops_by_dtype.items())}), bytes "
+            f"{r.hbm_bytes:.6e}; compute {r.compute_s * 1e3:.4f} ms, memory "
+            f"{r.memory_s * 1e3:.4f} ms: bound {bound_ms:.4f} ms ({r.bottleneck}); "
+            f"predicted peak {peak:.3f} GiB")
+    if measured is None:
+        log(line + "; the [train] step not measured")
+        return
+    step_ms = measured["step_ms"]
+    peak_flops = HW().peak_flops             # the H100 SXM's dense bf16 rate
+    log(line + f"; measured step {step_ms:.4f} ms: roofline_fraction "
+        f"{bound_ms / step_ms:.6f}, MFU {mf / (step_ms * 1e-3 * peak_flops):.6f} "
+        f"(model flops / (step s x {peak_flops:.4g})); measured peak "
+        f"{measured['peak_gib']:.3f} GiB (max_memory_allocated)")
+
+
+def serve_mesh_generate(model, params, caches, prompt, mesh=None) -> dict:
+    """Prefill `prompt`, then DRYRUN_DECODE_STEPS greedy serve steps: the
+    logits of each, the tokens, and the caches whole."""
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.serve_lib import make_prefill_step, make_serve_step
+    logits, caches, _ = make_prefill_step(model, mesh)(params, {"tokens": prompt}, caches)
+    out = {"logits": [logits]}
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    for i in range(DRYRUN_DECODE_STEPS):
+        step = make_serve_step(model, seq_len=prompt.shape[1] + 1 + i, mesh=mesh)
+        logits, caches = step(params, tok, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out["logits"].append(logits)
+    out["caches"] = [shd.gather(t) for layer in caches for t in layer.values()]
+    return out
+
+
+def dryrun_serve_mesh(device: torch.device, max_err: dict) -> dict[str, int]:
+    """Prefill and DRYRUN_DECODE_STEPS decode steps of TRAIN_ARCH at
+    TRAIN_CUT_LAYERS layers, full width, at LM_TRAFFIC's batch and prompt,
+    through the meshed serve steps on a (1, 1) NCCL mesh under exact and
+    mitchell: logits and caches byte-equal to the unmeshed steps, every
+    `mitchell_matmul` call of the meshed run equal to its plain version;
+    -> the matmul kernels' launches in the meshed runs."""
+    import tempfile
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import sharding as shd
+
+    batch, prompt_len, _ = LM_TRAFFIC
+    s_max = prompt_len + DRYRUN_DECODE_STEPS + 1
+    launches = dict.fromkeys(MATMUL_KERNELS, 0)
+    with tempfile.TemporaryDirectory() as d, nccl_world(0, 1, os.path.join(d, "rdzv")):
+        mesh = make_host_mesh()
+        for method in ("exact", "mitchell"):
+            cfg = train_cut(method)
+            model = build_model(cfg)
+            params = model.init(torch.Generator(device).manual_seed(0))
+            prompt = torch.from_numpy(np.random.default_rng(11).integers(
+                0, cfg.vocab_size, (batch, prompt_len), dtype=np.int64)).to(device)
+            want = serve_mesh_generate(model, params, model.init_cache(batch, s_max), prompt)
+            p = shd.distribute_tree(params, shd.param_shardings(params, cfg, mesh,
+                                                                multi_pod=False))
+            caches = model.init_cache(batch, s_max)
+            c = shd.distribute_tree(caches, shd.cache_shardings(caches, cfg, mesh,
+                                                                multi_pod=False))
+            stats = {"calls": 0, "max_err": 0}
+            reset_matmul_launches()
+            shd.reset_collectives()
+            with checked_mitchell(stats):
+                got = serve_mesh_generate(model, p, c, prompt, mesh)
+            torch.cuda.synchronize()
+            for name, n in matmul_launches().items():
+                launches[name] += n
+            coll = dict(shd.COLLECTIVES)
+            max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
+            equal = (all(torch.equal(g, w) for g, w in zip(got["logits"], want["logits"]))
+                     and all(torch.equal(g, w) for g, w in zip(got["caches"], want["caches"])))
+            assert equal and stats["max_err"] == 0, (method, stats)
+            calls = (prefill_calls(cfg) + DRYRUN_DECODE_STEPS * dense_calls(cfg)
+                     if method == "mitchell" else 0)
+            assert stats["calls"] == calls and matmul_launches()["mitchell_matmul"] == calls, \
+                (method, stats, matmul_launches())
+            log(f"[dryrun] serve mesh (1, 1), {TRAIN_ARCH} {TRAIN_CUT_LAYERS} layers full width, "
+                f"{method}: prefill of {batch} x {prompt_len} + {DRYRUN_DECODE_STEPS} decode "
+                f"steps, logits of every step and {len(want['caches'])} caches byte-equal to "
+                f"the unmeshed steps; {stats['calls']} mitchell_matmul calls == plain (max "
+                f"|err| {stats['max_err']}); collectives {coll}")
+            del model, params, p, c, want, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun(device: torch.device, max_err: dict, smi: str, unmeshed: dict | None,
+                 cli: tuple[str, list[subprocess.Popen]]) -> dict[str, int]:
+    """The [dryrun] phase: the [train] cell counted beside its measurements
+    (`unmeshed`, the [train] phase's numbers by method), the meshed serve
+    steps on a (1, 1) NCCL mesh, then the records of the dry-run CLI's
+    processes (`cli`, started by `dryrun_cli` after the build). -> the
+    matmul kernels' launches in the meshed serve runs."""
+    t0 = time.perf_counter()
+    dryrun_train_cell(device, smi, unmeshed)
+    launches = dryrun_serve_mesh(device, max_err)
+    dryrun_records(*cli)
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s (host clock, the CLI's processes "
+        f"run from the build on); serve-mesh launches {launches}")
+    return launches
+
+
 # the VLM's image K / V projection: the one LM call on the tiled route
 VLM_TILED_SHAPE = (6400, 8192, 1024)
 
@@ -3643,6 +3851,7 @@ def main() -> int:
     device = torch.device("cuda")
     kind, smi, int32_ops_per_s = phase_card()
     phase_build()
+    dryrun = dryrun_cli()
     from repro_torch.filters.conv import KERNELS
     max_err = dict.fromkeys(KERNELS + MATMUL_KERNELS, 0)
     phase_parity(max_err)
@@ -3668,6 +3877,7 @@ def main() -> int:
     train_launches, train_mitchell_ms, train_numbers = phase_train(device, max_err,
                                                                    int32_ops_per_s)
     mesh_launches = phase_mesh(device, max_err, smi, train_numbers)
+    dryrun_launches = phase_dryrun(device, max_err, smi, train_numbers, dryrun)
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
@@ -3715,6 +3925,7 @@ def main() -> int:
             "library_ms": t["library_ms"], "serve_launches": serve_launches[name],
             "lm_launches": lm_launches[name], "train_launches": train_launches[name],
             "mesh_train_launches": mesh_launches[name],
+            "serve_mesh_launches": dryrun_launches[name],
             **({"decode_step_ms": step["ms"], "decode_step_bound_ms": step["bound_ms"],
                 "lm_decode_step_device_ms": step["lm_device_ms"],
                 "decode_step_by_arch": steps,

@@ -20,16 +20,19 @@ launch fails: `karatsuba_matmul_i8` on the int8 tensor cores when the limbs
 fit int8 (`repro_torch.kernels.karatsuba_matmul_i8`, which holds the rule and
 its own launch count), else `karatsuba_matmul_wide`, the CUDA-core kernel
 for any int32 limbs; each launch of the latter adds one to
-`LAUNCHES['karatsuba_matmul']`. The reference's TPU grid arguments (block_m,
-block_n, block_k, accum) have no counterpart: each kernel's tile is a
-constant of its source, it reduces over K in a loop, and it masks the
-ragged edges itself, so operands need no padding.
+`LAUNCHES['karatsuba_matmul']`. Fake tensors (`FakeTensorMode`, on any
+device) take the int8 route's pack and product, which launch nothing and
+record the product's work (`karatsuba_matmul_i8`). The reference's TPU
+grid arguments (block_m, block_n, block_k, accum) have no counterpart:
+each kernel's tile is a constant of its source, it reduces over K in a
+loop, and it masks the ragged edges itself, so operands need no padding.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.bitops import wrap32
 from repro_torch.kernels.build import launch
@@ -111,9 +114,9 @@ def karatsuba_matmul_wide(a_hi: torch.Tensor, a_lo: torch.Tensor,
 
 
 def _cuda_limbs(a_hi, a_lo, b_hi, b_lo) -> list[torch.Tensor]:
-    """The limbs, contiguous; raises for a device other than CUDA or a shape
-    past the kernels' grids."""
-    if a_hi.device.type != "cuda":
+    """The limbs, contiguous; raises for a device other than CUDA (fake
+    tensors on any device pass) or a shape past the kernels' grids."""
+    if a_hi.device.type != "cuda" and not is_fake(a_hi):
         raise ValueError(f"the kernel runs on CUDA or CPU tensors, got {a_hi.device}")
     m, k = a_hi.shape
     n = b_hi.shape[1]
@@ -138,7 +141,7 @@ def karatsuba_matmul_kernel(a_hi: torch.Tensor, a_lo: torch.Tensor,
     from repro_torch.kernels import karatsuba_matmul_i8 as i8
 
     _check_limbs(a_hi, a_lo, b_hi, b_lo)
-    if a_hi.device.type == "cpu":
+    if a_hi.device.type == "cpu" and not is_fake(a_hi):
         return karatsuba_matmul_plain(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)
     limbs = _cuda_limbs(a_hi, a_lo, b_hi, b_lo)
     if a_hi.shape[0] == 0 or b_hi.shape[1] == 0:

@@ -16,6 +16,14 @@ guarantees it (w=7 limbs in [-64, 63], w=8 limbs in [-128, 127]), and so do
 Each launch of the product kernel adds one to
 `LAUNCHES['karatsuba_matmul_i8']`; the pack step is its first half and is
 not counted apart.
+
+Fake tensors (`FakeTensorMode`, the dry-run's) launch nothing: `pack`
+returns empty int8 copies and takes the limbs as fitting (the range check
+cannot be read; `quantize_limbs` guarantees it), and `product` returns
+empty outputs and records the product's work in `repro_torch.roofline.
+analysis`'s counters: 2 int8 operations a multiply-add of each of its 3
+(Karatsuba) or 4 products, and the bytes of its bound, 4 (2MK + 2KN + 3MN).
+`LAUNCHES` does not move.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.build import launch
 
@@ -87,6 +96,8 @@ def pack_async(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
     a8 = torch.empty((2, m, kp), dtype=torch.int8, device=dev)
     b8 = torch.empty((2, n, kp), dtype=torch.int8, device=dev)
     flag = torch.empty(1, dtype=torch.int32, device=dev)
+    if is_fake(a_hi):
+        return PackedLimbs(a8, b8, m, n, karatsuba), flag
     launch(KERNEL, "karatsuba_i8_pack", _PACK_ARGTYPES, dev,
            *(t.data_ptr() for t in (a_hi, a_lo, b_hi, b_lo, a8, b8, flag)),
            m, k, n, kp, int(karatsuba))
@@ -98,6 +109,8 @@ def pack(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
     """`pack_async`, then the range check read with one host sync; None if
     the limbs do not fit int8."""
     packed, flag = pack_async(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)
+    if is_fake(flag):
+        return packed
     return None if int(flag.item()) else packed
 
 
@@ -105,6 +118,12 @@ def product(packed: PackedLimbs) -> tuple[torch.Tensor, torch.Tensor, torch.Tens
     """(hh, mid, ll), each (M, N) int32, from limbs that `pack` accepted."""
     a8, b8, m, n, karatsuba = packed
     outs = [torch.empty((m, n), dtype=torch.int32, device=a8.device) for _ in range(3)]
+    if is_fake(a8):
+        from repro_torch.roofline.analysis import record_kernel
+        k = a8.shape[2]
+        record_kernel(KERNEL, ops=(3 if karatsuba else 4) * 2 * m * k * n, dtype="int8",
+                      nbytes=4 * (2 * m * k + 2 * k * n + 3 * m * n))
+        return tuple(outs)
     launch(KERNEL, KERNEL, _PRODUCT_ARGTYPES, a8.device, a8.data_ptr(), b8.data_ptr(),
            *(t.data_ptr() for t in outs), m, a8.shape[2], n, int(karatsuba))
     LAUNCHES[KERNEL] += 1

@@ -18,7 +18,11 @@ kernel mirrors it; no operand is refused). Operands of the quantized
 datapath are below 2**16, where no shift reaches 32 bits.
 
 `mitchell_matmul_kernel` launches the kernel for CUDA tensors and raises if
-the launch fails; it runs `mitchell_matmul_plain` only for CPU tensors. Each
+the launch fails; it runs `mitchell_matmul_plain` only for CPU tensors. A
+fake tensor (`FakeTensorMode`, the dry-run's) launches nothing: the wrapper
+returns an empty output of the kernel's shape and records the kernel's
+work, `ops_per_product` int32 operations a product and its int32 bytes,
+in `repro_torch.roofline.analysis`'s counters. Each
 launch adds one to `LAUNCHES['mitchell_matmul']` and one to its route's
 count in `ROUTE_LAUNCHES`. The reference's TPU grid arguments (block_m,
 block_n, block_k, accum) have no counterpart: `launch_plan` picks the
@@ -36,6 +40,7 @@ from dataclasses import dataclass
 from functools import lru_cache
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.approx_matmul import row_slices
 from repro_torch.core.bitops import leading_one_position, shift_left_int32, wrap32
@@ -133,6 +138,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def ops_per_product(num_ecc: int, case_split: bool) -> int:
+    """Integer operations of one product as the kernel forms it: per stage
+    the exponent add, three shifts and two adds; the case split's compare,
+    select and shift; the sign and the accumulate (11 for Mitchell)."""
+    return 6 * (num_ecc + 1) + (3 if case_split else 0) + 2
+
+
+def count_fake(a: torch.Tensor, b: torch.Tensor, num_ecc: int,
+               case_split: bool) -> torch.Tensor:
+    """A fake call: the (M, N) int32 output, empty, and the kernel's work
+    recorded (`roofline.analysis.record_kernel`); no launch, no count in
+    LAUNCHES."""
+    from repro_torch.roofline.analysis import record_kernel
+    if num_ecc < 0:
+        raise ValueError(f"num_ecc must be >= 0, got {num_ecc}")
+    m, k = a.shape
+    n = b.shape[1]
+    record_kernel(KERNEL, ops=ops_per_product(num_ecc, case_split) * m * k * n,
+                  dtype="int32", nbytes=4 * (m * k + k * n + m * n))
+    return torch.empty((m, n), dtype=torch.int32, device=a.device)
+
+
 def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
     for name, t in (("a", a), ("b", b)):
         if not isinstance(t, torch.Tensor) or t.dim() != 2 or t.dtype != torch.int32:
@@ -189,6 +216,8 @@ def mitchell_matmul_kernel(a: torch.Tensor, b: torch.Tensor, *, num_ecc: int = 0
     """Raw kernel entry: a (M, K), b (K, N) signed int32 on one device ->
     (M, N) int32 on that device."""
     _check_operands(a, b)
+    if is_fake(a):
+        return count_fake(a, b, num_ecc, case_split)
     if a.device.type == "cpu":
         return mitchell_matmul_plain(a, b, num_ecc=num_ecc, case_split=case_split)
     if a.device.type != "cuda":
@@ -222,6 +251,6 @@ def run_plan(a: torch.Tensor, b: torch.Tensor, plan: LaunchPlan, *, num_ecc: int
     return out
 
 
-__all__ = ["KERNEL", "LAUNCHES", "LaunchPlan", "ROUTE_LAUNCHES", "launch_plan",
-           "mitchell_matmul_kernel", "mitchell_matmul_plain", "reset_launches", "route_plan",
-           "run_plan"]
+__all__ = ["KERNEL", "LAUNCHES", "LaunchPlan", "ROUTE_LAUNCHES", "count_fake", "launch_plan",
+           "mitchell_matmul_kernel", "mitchell_matmul_plain", "ops_per_product",
+           "reset_launches", "route_plan", "run_plan"]

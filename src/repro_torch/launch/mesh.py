@@ -11,10 +11,18 @@ importing this module touches no device and no process group.
   * `make_host_mesh(data, model)` is a `DeviceMesh` ("data", "model") over
     the initialized process group: "cuda" under NCCL, "cpu" under gloo.
     `data` defaults to world_size // model. Without a process group, or
-    with a shape that does not cover the world, it raises.
+    with a shape that does not cover the world, it raises;
+  * `fake_production_mesh(multi_pod)` is a context manager: PyTorch's
+    "fake" process group at the production mesh's world (256 or 512
+    ranks, this process rank 0, every collective a no-op) and rank 0's
+    `DeviceMesh` over it, the group destroyed on exit. Under
+    `FakeTensorMode` one step of the port's program then runs as one
+    rank of the production mesh runs it, with nothing allocated: what
+    `repro_torch.launch.dryrun` counts.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 
@@ -50,4 +58,29 @@ def make_host_mesh(*, data: int | None = None, model: int = 1):
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
 
 
-__all__ = ["ShapeMesh", "make_host_mesh", "make_production_mesh"]
+@contextlib.contextmanager
+def fake_production_mesh(multi_pod: bool = False):
+    """Rank 0's `DeviceMesh` of the production mesh over a "fake" process
+    group of its world (256 or 512 ranks), a "cuda" mesh where a card is
+    present, else "cpu"; the group is destroyed on exit. Raises if a
+    process group is already initialized."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape = make_production_mesh(multi_pod=multi_pod)
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    world = 1
+    for n in shape.sizes:
+        world *= n
+    device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield init_device_mesh(device_type, shape.sizes, mesh_dim_names=shape.mesh_dim_names)
+    finally:
+        dist.destroy_process_group()
+
+
+__all__ = ["ShapeMesh", "fake_production_mesh", "make_host_mesh", "make_production_mesh"]

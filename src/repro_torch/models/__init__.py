@@ -10,6 +10,6 @@ stack) and `model` (`build_model`).
 """
 from __future__ import annotations
 
-from repro_torch.models.model import Model, build_model
+from repro_torch.models.model import Model, build_model, input_specs
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "input_specs"]

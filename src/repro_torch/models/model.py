@@ -193,4 +193,23 @@ def build_model(cfg, device: str | torch.device | None = None, *,
                  count_params)
 
 
-__all__ = ["Model", "build_model"]
+def input_specs(cfg, shape, device: str | torch.device = "cpu") -> dict:
+    """Empty tensors of every model input of one shape cell, with the
+    reference's shapes and dtypes (`repro.models.model.input_specs`): under
+    `FakeTensorMode` they are fake, and hold no storage."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def mk(sh, dt):
+        return torch.empty(sh, dtype=dt, device=device)
+    if shape.kind == "decode":
+        return {"tokens": mk((b, 1), torch.int32)}
+    if cfg.input_kind == "frames":
+        return {"frames": mk((b, s, cfg.frame_dim), torch.float32),
+                "labels": mk((b, s), torch.int32)}
+    batch = {"tokens": mk((b, s), torch.int32), "labels": mk((b, s), torch.int32)}
+    if cfg.input_kind == "tokens+image":
+        batch["image_embeds"] = mk((b, cfg.image_tokens, cfg.d_model), torch.float32)
+    return batch
+
+
+__all__ = ["Model", "build_model", "input_specs"]

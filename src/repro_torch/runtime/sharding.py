@@ -326,15 +326,25 @@ def distribute(full: torch.Tensor, sharding: Sharding):
     return DTensor.from_local(local, sharding.mesh, pl, run_check=False)
 
 
+def distribute_tree(tree, shardings):
+    """`distribute` of every leaf of `tree` (whole on every rank) by its
+    `Sharding` in `shardings` (a tree of the same structure)."""
+    from repro_torch.core.tree import tree_map_with_path, tree_paths
+    specs = dict(tree_paths(shardings))
+    return tree_map_with_path(lambda path, t: distribute(t, specs[path]), tree)
+
+
 def is_sharded(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
 
 
-def gather(t) -> torch.Tensor:
+def gather(t, keep_dim: int | None = None) -> torch.Tensor:
     """The whole tensor of a DTensor: an all-gather over each mesh dim of
-    more than one rank that shards it, innermost first. Every rank of the
-    mesh calls it, in the same order. A plain tensor comes back as it is."""
+    more than one rank that shards it, innermost first; with `keep_dim`,
+    not over the mesh dims that shard that tensor dim (it stays this
+    rank's block). Every rank of the mesh calls it, in the same order. A
+    plain tensor comes back as it is."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
     if not is_sharded(t):
@@ -342,7 +352,7 @@ def gather(t) -> torch.Tensor:
     mesh, pl = t.device_mesh, t.placements
     local = out = t.to_local()
     for i in reversed(range(len(pl))):
-        if not isinstance(pl[i], Shard) or mesh.size(i) == 1:
+        if not isinstance(pl[i], Shard) or mesh.size(i) == 1 or pl[i].dim == keep_dim:
             continue
         n, d = mesh.size(i), pl[i].dim
         src = out.movedim(d, 0).contiguous()
@@ -352,6 +362,39 @@ def gather(t) -> torch.Tensor:
         count_collective("all_gather", buf)
         out = buf.movedim(0, d)
     return out.clone() if out is local else out
+
+
+def gather_tree(tree, keep_dim: int | None = None):
+    """`gather` of every leaf of `tree` (a plain leaf as it is)."""
+    from repro_torch.core.tree import tree_map_with_path
+    return tree_map_with_path(lambda _, t: gather(t, keep_dim), tree)
+
+
+def block_of(full: torch.Tensor, t, keep_dim: int | None = None) -> torch.Tensor:
+    """This rank's block of `full`, as the leaf `t` holds it (a plain leaf:
+    all of it); with `keep_dim`, `full` already holds this rank's block of
+    that dim (as `gather(t, keep_dim)` leaves it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not is_sharded(t):
+        return full
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == keep_dim else p
+          for p in t.placements]
+    return shard_of(full, t.device_mesh, pl)
+
+
+@torch.no_grad()
+def keep_blocks(tree, full, keep_dim: int | None = None):
+    """Write this rank's blocks (`block_of`) of the leaves of `full` into
+    the leaves of `tree`, a tree of the same structure: a DTensor's local
+    block, a plain leaf whole. -> `tree`."""
+    from repro_torch.core.tree import tree_map_with_path, tree_paths
+    wholes = dict(tree_paths(full))
+
+    def keep(path: str, t) -> None:
+        local = t.to_local() if is_sharded(t) else t
+        local.copy_(block_of(wholes[path], t, keep_dim))
+    tree_map_with_path(keep, tree)
+    return tree
 
 
 #: elements of a grad bucket (256 MiB of float32): one all-reduce each
@@ -385,7 +428,7 @@ def activation_sharding_ctx():
 
 
 __all__ = ["COLLECTIVES", "Sharding", "activation_sharding_ctx", "all_reduce",
-           "all_reduce_coalesced", "axis_sizes", "batch_shardings", "cache_shardings",
-           "distribute", "ef_shardings", "gather", "is_sharded", "logical_rules",
-           "mesh_device", "opt_shardings", "param_shardings", "placements", "reset_collectives",
-           "scalar_sharding", "shard_of", "spec_of"]
+           "all_reduce_coalesced", "axis_sizes", "batch_shardings", "block_of", "cache_shardings",
+           "distribute", "distribute_tree", "ef_shardings", "gather", "gather_tree", "is_sharded",
+           "keep_blocks", "logical_rules", "mesh_device", "opt_shardings", "param_shardings",
+           "placements", "reset_collectives", "scalar_sharding", "shard_of", "spec_of"]

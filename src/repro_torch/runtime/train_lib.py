@@ -44,7 +44,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.quant import f32
-from repro_torch.core.tree import tree_map_with_path, tree_paths
+from repro_torch.core.tree import tree_map_with_path
 from repro_torch.optim import cosine_schedule, get_optimizer, param_groups
 from repro_torch.optim.grad_compress import compress_grads, init_error_feedback
 from repro_torch.optim.optimizers import Group
@@ -83,9 +83,8 @@ def shard_state(state: TrainState, cfg, mesh) -> TrainState:
     """A whole `TrainState` (the same on every rank) as this rank's blocks
     on `mesh`, by `state_shardings`."""
     from repro_torch.runtime.elastic import state_shardings
-    shardings = state_shardings(state, cfg, mesh, multi_pod=multi_pod(mesh))
-    specs = dict(tree_paths(shardings))
-    return tree_map_with_path(lambda path, t: shd.distribute(t, specs[path]), state)
+    return shd.distribute_tree(state, state_shardings(state, cfg, mesh,
+                                                      multi_pod=multi_pod(mesh)))
 
 
 def grads_of(model, params, batch: dict, leaves: list[torch.Tensor]):
@@ -108,9 +107,10 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
     lr_fn = cosine_schedule(peak_lr, warmup, total_steps)
     if mesh is not None:
         import torch.distributed as dist
-        world, rank = dist.get_world_size(), dist.get_rank()
-        if mesh.size() != world:
-            raise ValueError(f"the mesh holds {mesh.size()} of the world's {world} ranks")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the mesh holds {mesh.size()} of the world's "
+                             f"{dist.get_world_size()} ranks")
+        world, rank = rank_rows(mesh, mesh.mesh_dim_names)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         k = cfg.microbatches
@@ -153,21 +153,21 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
 
         new_ef = state.ef
         if cfg.grad_compress:
-            grads, ef = compress_grads(grads, _whole(state.ef), groups)
-            new_ef = ef if mesh is None else _keep(state.ef, ef)
+            grads, ef = compress_grads(grads, shd.gather_tree(state.ef), groups)
+            new_ef = ef if mesh is None else shd.keep_blocks(state.ef, ef)
 
         lr = lr_fn(state.step)
         if mesh is None or cfg.optimizer == "adamw":    # in place: AdamW is element-wise
             at_rest = groups if mesh is None else param_groups(state.params, cfg)
-            optimizer.update([[_block(g, t) for g, t in zip(gs, group.params)]
+            optimizer.update([[shd.block_of(g, t) for g, t in zip(gs, group.params)]
                               for gs, group in zip(grads, at_rest)],
                              {"count": state.opt["count"], "state": _local(state.opt["state"])},
                              [Group(g.key, _local(g.params), g.stacked) for g in at_rest], lr)
         else:                           # couples the stack: on the whole, then kept
-            opt = {"count": state.opt["count"], "state": _whole(state.opt["state"])}
+            opt = {"count": state.opt["count"], "state": shd.gather_tree(state.opt["state"])}
             optimizer.update(grads, opt, groups, lr)
-            _keep(state.params, params)
-            _keep(state.opt["state"], opt["state"])
+            shd.keep_blocks(state.params, params)
+            shd.keep_blocks(state.opt["state"], opt["state"])
         gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for gs in grads for g in gs))
         out_metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm, **metrics}
         return TrainState(state.step + 1, state.params, state.opt, new_ef), out_metrics
@@ -197,30 +197,25 @@ def row_split(cfg, batch: dict, world: int) -> tuple[int, int]:
     return n, per
 
 
+def rank_rows(mesh, axes) -> tuple[int, int]:
+    """(row groups, this rank's group) when a batch's rows split over the
+    mesh axes `axes`, the first major: `row_split`'s `world` and the index
+    of this rank's block. The ranks along the other axes share a group and
+    compute the same rows; over every axis of the mesh the groups are the
+    ranks."""
+    names, coord = list(mesh.mesh_dim_names), mesh.get_coordinate()
+    groups, index = 1, 0
+    for ax in axes:
+        size = mesh.size(names.index(ax))
+        groups, index = groups * size, index * size + coord[names.index(ax)]
+    return groups, index
+
+
 def _local(tree):
     """This rank's blocks of a tree of state leaves: a DTensor's local
     tensor, a plain leaf whole."""
     return tree_map_with_path(lambda _, t: t.to_local() if shd.is_sharded(t) else t, tree)
 
 
-def _whole(tree):
-    """A tree of state leaves gathered whole (a plain leaf as it is)."""
-    return tree_map_with_path(lambda _, t: shd.gather(t), tree)
-
-
-def _block(full: torch.Tensor, t) -> torch.Tensor:
-    """This rank's block of `full`, as the state leaf `t` holds it."""
-    return shd.shard_of(full, t.device_mesh, t.placements) if shd.is_sharded(t) else full
-
-
-@torch.no_grad()
-def _keep(tree, full):
-    """Write this rank's blocks of the tree `full` into the state leaves of
-    `tree` (the same structure); -> `tree`."""
-    wholes = dict(tree_paths(full))
-    tree_map_with_path(lambda path, t: _local(t).copy_(_block(wholes[path], t)), tree)
-    return tree
-
-
-__all__ = ["TrainState", "grads_of", "make_train_state", "make_train_step", "row_split",
-           "shard_state"]
+__all__ = ["TrainState", "grads_of", "make_train_state", "make_train_step", "rank_rows",
+           "row_split", "shard_state"]
