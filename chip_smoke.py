@@ -932,6 +932,30 @@ def phase_main(device: torch.device) -> tuple[dict[str, int], torch.Tensor]:
     return launches, torch.from_numpy(frames).to(device)
 
 
+FOLD_TAPS = {"3x3": np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]])}      # gaussian3, shift 4
+FOLD_SEPARABLE = np.array([1, 4, 6, 4, 1])                          # gaussian5's row = col
+
+
+def phase_batch_fold(frames: torch.Tensor) -> None:
+    """`batch_fold=True` on the card: the batch folded on the host into
+    one tall image (each frame with its kh//2 zero rows), the same kernel
+    pass, cropped; byte-equal to the unfolded pass at MAIN_SHAPE, kcm and
+    recurse, a direct 3x3 pass and a fused 5x5 separable pass."""
+    from repro_torch.filters import conv
+    for impl in ("kcm", "recurse"):
+        outs = {}
+        for fold in (False, True):
+            outs[fold] = (conv.conv2d_pass(frames, FOLD_TAPS["3x3"], method="refmlm", shift=4,
+                                           mult_impl=impl, batch_fold=fold),
+                          conv.fused_separable_pass(frames, FOLD_SEPARABLE, FOLD_SEPARABLE,
+                                                    method="refmlm", nbits2=16, shift=8,
+                                                    mult_impl=impl, batch_fold=fold))
+        equal = all(torch.equal(a, b) for a, b in zip(outs[False], outs[True]))
+        assert equal, f"batch_fold=True != unfolded ({impl})"
+        log(f"[fold] {tuple(frames.shape)} {impl}: a 3x3 direct and a 5x5 fused pass with "
+            f"batch_fold=True byte-equal to the unfolded passes")
+
+
 def route_launches() -> dict[str, dict[str, int]]:
     """conv.ROUTE_LAUNCHES by kernel: {'32x64': n, ...} for the persistent
     tiles and {'tiled': n}."""
@@ -2271,14 +2295,16 @@ def phase_mesh_parity(mesh, device: torch.device, max_err: dict) -> None:
 
 
 def phase_mesh_method(method: str, mesh, device: torch.device,
-                      unmeshed_first: dict | None) -> tuple[dict, dict[str, int]]:
+                      unmeshed_first: dict | None,
+                      restore: bool) -> tuple[dict, dict[str, int]]:
     """TRAIN_ARCH at full width and depth, `method`, on `mesh`: MESH_STEPS
-    steps through `run_training` with a (blocking, timed) checkpoint at
-    MESH_CKPT_EVERY, the first against the [train] phase's unmeshed first
-    step (`unmeshed_first`), the remesh restore of that checkpoint onto a
-    fresh mesh and its next step against the run's, one step under the
-    sync debug mode and one under torch.profiler. -> (the step's numbers,
-    the matmul kernels' launches in the run_training steps)."""
+    steps through `run_training`, the first against the [train] phase's
+    unmeshed first step (`unmeshed_first`); with `restore`, a (blocking,
+    timed) checkpoint at MESH_CKPT_EVERY, the remesh restore of it onto a
+    fresh mesh and its next step against the run's (the checkpoint path
+    does not depend on the method: one method's run takes it); one step
+    under the sync debug mode and one under torch.profiler. -> (the step's
+    numbers, the matmul kernels' launches in the run_training steps)."""
     import dataclasses
     import tempfile
 
@@ -2295,10 +2321,11 @@ def phase_mesh_method(method: str, mesh, device: torch.device,
     batch_of = lambda s: lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1], step=s)  # noqa: E731
     step = make_train_step(model, mesh=mesh)
     monitor, losses, first = StragglerMonitor(), [], {}
+    size = restore_ms = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as ckpt_dir:
-        ckpt = TimedCheckpoints(ckpt_dir, MESH_CKPT_EVERY)
+        ckpt = TimedCheckpoints(ckpt_dir, MESH_CKPT_EVERY if restore else MESH_STEPS + 1)
         reset_matmul_launches()
         state = run_training(
             train_step=first_step_kept(step, cfg, first), init_state=lambda: make_train_state(
@@ -2307,23 +2334,26 @@ def phase_mesh_method(method: str, mesh, device: torch.device,
             straggler=monitor, on_metrics=lambda s, m: losses.append(m["loss"]))
         launches = matmul_launches()
         peak = torch.cuda.max_memory_allocated()
-        size = sum(f.stat().st_size for f in Path(ckpt_dir, f"step_{MESH_CKPT_EVERY:08d}")
-                   .iterdir())
-        fresh = make_host_mesh()
-        t0 = time.perf_counter()
-        at, restored = remesh_restore(ckpt_dir, abstract_train_state(cfg), cfg, fresh,
-                                      multi_pod=False)
-        torch.cuda.synchronize()
-        restore_ms = (time.perf_counter() - t0) * 1e3
+        if restore:
+            size = sum(f.stat().st_size for f in Path(ckpt_dir, f"step_{MESH_CKPT_EVERY:08d}")
+                       .iterdir())
+            fresh = make_host_mesh()
+            t0 = time.perf_counter()
+            at, restored = remesh_restore(ckpt_dir, abstract_train_state(cfg), cfg, fresh,
+                                          multi_pod=False)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
     gap = None if unmeshed_first is None else first_step_gap(first, unmeshed_first)
     del first
-    assert at == MESH_CKPT_EVERY and int(restored.step) == at, at
-    _, again = make_train_step(model, mesh=fresh)(restored, batch_of(at))
-    del restored
     losses = [float(x) for x in losses]
     assert len(losses) == MESH_STEPS and all(np.isfinite(losses)), losses
-    resumed = float(again["loss"])
-    assert abs(resumed - losses[at]) <= MESH_LOSS_RTOL * abs(losses[at]), (resumed, losses)
+    resumed = None
+    if restore:
+        assert at == MESH_CKPT_EVERY and int(restored.step) == at, at
+        _, again = make_train_step(model, mesh=fresh)(restored, batch_of(at))
+        del restored
+        resumed = float(again["loss"])
+        assert abs(resumed - losses[at]) <= MESH_LOSS_RTOL * abs(losses[at]), (resumed, losses)
     per_step = train_dense_calls(cfg)
     kernel = {"mitchell": "mitchell_matmul", "karatsuba_int16": "karatsuba_matmul_i8"}.get(method)
     want = {kernel: MESH_STEPS * per_step} if kernel else {}
@@ -2344,7 +2374,8 @@ def phase_mesh_method(method: str, mesh, device: torch.device,
     numbers = {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s, "syncs": syncs,
                "busy": None if busy is None else busy[1] / busy[0],
                "peak_gib": peak / 2**30, "save_ms": ckpt.save_ms, "restore_ms": restore_ms,
-               "ckpt_mib": size / 2**20, "collectives": collectives, "first_step": gap,
+               "ckpt_mib": None if size is None else size / 2**20, "collectives": collectives,
+               "first_step": gap,
                "losses": losses, "resumed_loss": resumed}
     first_line = "not compared (no [train] phase ran)" if gap is None else (
         f"loss {'byte-equal' if gap['loss_equal'] else 'rel gap %.3g' % gap['loss_rel']}, "
@@ -2360,11 +2391,13 @@ def phase_mesh_method(method: str, mesh, device: torch.device,
         f"{sync_sites}; " + ("busy not measured (no device time seen)" if busy is None else
                              f"one step under torch.profiler: wall {busy[0]:.4f} ms, CUDA "
                              f"kernels {busy[1]:.4f} ms, busy {busy[1] / busy[0]:.4f}")
-        + f"; peak {peak / 2**30:.3f} GiB; sharded checkpoint ({size / 2**20:.1f} MiB) save "
-        f"{ckpt.save_ms:.1f} ms, remesh restore onto a fresh {tuple(fresh.shape)} mesh "
-        f"{restore_ms:.1f} ms (host clock); step {at + 1} after the restore: loss "
-        f"{resumed:.6f} ({'byte-equal to' if resumed == losses[at] else 'within rtol 2e-5 of'}"
-        f" the run's {losses[at]:.6f})")
+        + f"; peak {peak / 2**30:.3f} GiB; " + (
+            "no checkpoint (the exact run takes the checkpoint path)" if not restore else
+            f"sharded checkpoint ({size / 2**20:.1f} MiB) save {ckpt.save_ms:.1f} ms, remesh "
+            f"restore onto a fresh {tuple(fresh.shape)} mesh {restore_ms:.1f} ms (host clock); "
+            f"step {at + 1} after the restore: loss {resumed:.6f} "
+            f"({'byte-equal to' if resumed == losses[at] else 'within rtol 2e-5 of'} the "
+            f"run's {losses[at]:.6f})"))
     del state, model, metrics
     torch.cuda.empty_cache()
     return numbers, launches
@@ -2394,11 +2427,13 @@ def delta_gap(p0: list, got: list, want: list, grads: list, names: list) -> dict
     return {"worst": worst, "worst_leaf": leaf, "grad_max": gmax, "held": held / total}
 
 
-def mesh_rank(rank: int, world: int, rdzv: str, out: str, device_type: str = "cuda") -> None:
+def mesh_rank(rank: int, world: int, rdzv: str, out: str, device_type: str = "cuda",
+              model_ranks: int = 1) -> None:
     """(a spawned rank) one full-width Qwen2-0.5B step in float32 (the
-    reference's tolerances are float32's) on a (world, 1) NCCL mesh from
-    the seed-0 state; rank 0 also takes the unmeshed step (and its grads)
-    and writes the loss and the params' `delta_gap`."""
+    reference's tolerances are float32's) on a (world / model_ranks,
+    model_ranks) NCCL mesh from the seed-0 state (tensor parallel over
+    "model" where model_ranks > 1); rank 0 also takes the unmeshed step
+    (and its grads) and writes the loss and the params' `delta_gap`."""
     import dataclasses
 
     from repro_torch.data.tokens import lm_batch
@@ -2410,7 +2445,7 @@ def mesh_rank(rank: int, world: int, rdzv: str, out: str, device_type: str = "cu
         device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
         cfg = dataclasses.replace(lm_config(TRAIN_ARCH), dtype="float32")
         model = build_model(cfg, device)
-        mesh = make_host_mesh()
+        mesh = make_host_mesh(model=model_ranks)
         batch = lm_batch(cfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1])
         state = make_train_state(model, torch.Generator(device).manual_seed(0), mesh)
         state, metrics = make_train_step(model, mesh=mesh)(state, batch)
@@ -2433,34 +2468,137 @@ def mesh_rank(rank: int, world: int, rdzv: str, out: str, device_type: str = "cu
 
 def phase_mesh_ranks() -> None:
     """Where the machine has two cards or more: MESH_RANKS' largest that
-    fits, as NCCL ranks of their own processes, one step each; the loss
-    against the unmeshed step's within MESH_LOSS_RTOL, each param's change
-    against its (`delta_gap`)."""
+    fits, as NCCL ranks of their own processes, one step each on an (n, 1)
+    mesh, then one on a (1, 2) mesh (tensor parallel over "model"); the
+    loss against the unmeshed step's within MESH_LOSS_RTOL, each param's
+    change against its (`delta_gap`)."""
     import tempfile
 
     import torch.multiprocessing as mp
     count = torch.cuda.device_count()
     fits = [n for n in MESH_RANKS if n <= count]
     if not fits:
-        log(f"[mesh] multi-card step not run: {count} CUDA device(s) here, the check "
-            f"needs 2 or more (one NCCL rank a card)")
+        log(f"[mesh] multi-card steps ((n, 1) and the (1, 2) tensor-parallel step) not run: "
+            f"{count} CUDA device(s) here, the check needs 2 or more (one NCCL rank a card)")
         return
-    n = fits[0]
+    for n, model_ranks in ((fits[0], 1), (2, 2)):
+        with tempfile.TemporaryDirectory() as d:
+            out = os.path.join(d, "gap.json")
+            t0 = time.perf_counter()
+            mp.spawn(mesh_rank, args=(n, os.path.join(d, "rdzv"), out, "cuda", model_ranks),
+                     nprocs=n)
+            gap = json.loads(Path(out).read_text())
+        rel = abs(gap["loss"] - gap["unmeshed_loss"]) / abs(gap["unmeshed_loss"])
+        assert rel <= MESH_LOSS_RTOL and gap["worst"] <= 1 and gap["held"] > 0, gap
+        log(f"[mesh] {n} NCCL ranks, a ({n // model_ranks}, {model_ranks}) mesh, {TRAIN_ARCH} "
+            f"full width and depth in float32: first "
+            f"step loss {gap['loss']:.6f} vs unmeshed {gap['unmeshed_loss']:.6f} (rel {rel:.3g}), "
+            f"params max |gap| {gap['params_max_abs']:.3g}, each param's change within "
+            f"{gap['worst']:.3g} of its tolerance ({MESH_DELTA_TOL} of its leaf's largest change; "
+            f"the worst {gap['worst_leaf']}) on the {gap['held']:.1%} of elements whose grad is "
+            f"above {MESH_SATURATED} and {MESH_EXEMPT} of the largest ({gap['grad_max']:.3g}); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def shared_card_probe(rank: int, device: torch.device) -> str | None:
+    """The capability question alone: can two gloo ranks on the one card
+    all-gather and all-reduce a small CUDA tensor? -> None, or the error."""
+    import torch.distributed as dist
+    try:
+        x = torch.full((4,), float(rank + 1), device=device)
+        buf = torch.empty((8,), device=device)
+        dist.all_gather_into_tensor(buf, x)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    except Exception as e:                           # noqa: BLE001 - the answer is the error
+        return f"{type(e).__name__}: {e}"[:600]
+    want = torch.tensor([1.0] * 4 + [2.0] * 4)
+    assert torch.equal(buf.cpu(), want) and torch.equal(x.cpu(), torch.full((4,), 3.0)), \
+        (buf, x)
+    return None
+
+
+def tp_shared_rank(rank: int, world: int, rdzv: str, out: str) -> None:
+    """(a spawned rank) two gloo ranks on the one card: where they can share
+    it (`shared_card_probe`), TRAIN_ARCH at TRAIN_CUT_LAYERS layers, full
+    width, mitchell, through the meshed prefill and DRYRUN_DECODE_STEPS
+    serve steps on a (1, 2) mesh (tensor parallel over "model"), every
+    `mitchell_matmul` call held against its plain version; rank 0 also
+    runs the unmeshed steps and writes both. A fault past the probe fails
+    the rank, and so the phase."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models import build_model
+    from repro_torch.runtime import sharding as shd
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    error = shared_card_probe(rank, device)
+    if error is not None:
+        if rank == 0:
+            Path(out).write_text(json.dumps({"shared": False, "error": error}))
+        dist.destroy_process_group()
+        return
+    mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+    cfg = train_cut("mitchell")
+    model = build_model(cfg, device)
+    params = model.init(torch.Generator(device).manual_seed(0))
+    batch, prompt_len, _ = LM_TRAFFIC
+    s_max = prompt_len + DRYRUN_DECODE_STEPS + 1
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (batch, prompt_len), dtype=np.int64)).to(device)
+    p = shd.distribute_tree(params, shd.param_shardings(params, cfg, mesh, multi_pod=False))
+    caches = model.init_cache(batch, s_max)
+    c = shd.distribute_tree(caches, shd.cache_shardings(caches, cfg, mesh, multi_pod=False))
+    stats = {"calls": 0, "max_err": 0}
+    shd.reset_collectives()
+    with checked_mitchell(stats):
+        got = serve_mesh_generate(model, p, c, prompt, mesh)
+    torch.cuda.synchronize()
+    result = {"shared": True, "stats": stats, "collectives": dict(shd.COLLECTIVES)}
+    if rank == 0:
+        want = serve_mesh_generate(model, params, model.init_cache(batch, s_max), prompt)
+        result["max_abs"] = max(float((g - w).abs().max())
+                                for g, w in zip(got["logits"], want["logits"]))
+        result["equal"] = all(torch.equal(g, w) for g, w in zip(got["logits"], want["logits"]))
+        Path(out).write_text(json.dumps(result))
+    dist.destroy_process_group()
+
+
+def phase_tp_shared_card(max_err: dict) -> None:
+    """Whether two gloo ranks can share the one card with CUDA tensors
+    (`shared_card_probe`); where they can, the (1, 2) tensor-parallel
+    serve step of `tp_shared_rank`: its logits byte-equal to the unmeshed
+    steps', rank 0's mitchell_matmul calls (7 a layer a forward: the
+    prefill and each serve step) equal to plain, asserted."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        out = os.path.join(d, "gap.json")
-        t0 = time.perf_counter()
-        mp.spawn(mesh_rank, args=(n, os.path.join(d, "rdzv"), out), nprocs=n)
-        gap = json.loads(Path(out).read_text())
-    rel = abs(gap["loss"] - gap["unmeshed_loss"]) / abs(gap["unmeshed_loss"])
-    assert rel <= MESH_LOSS_RTOL and gap["worst"] <= 1 and gap["held"] > 0, gap
-    log(f"[mesh] {n} NCCL ranks, a ({n}, 1) mesh, {TRAIN_ARCH} full width and depth in "
-        f"float32: first "
-        f"step loss {gap['loss']:.6f} vs unmeshed {gap['unmeshed_loss']:.6f} (rel {rel:.3g}), "
-        f"params max |gap| {gap['params_max_abs']:.3g}, each param's change within "
-        f"{gap['worst']:.3g} of its tolerance ({MESH_DELTA_TOL} of its leaf's largest change; "
-        f"the worst {gap['worst_leaf']}) on the {gap['held']:.1%} of elements whose grad is "
-        f"above {MESH_SATURATED} and {MESH_EXEMPT} of the largest ({gap['grad_max']:.3g}); "
-        f"{time.perf_counter() - t0:.1f} s")
+        out = os.path.join(d, "tp.json")
+        mp.spawn(tp_shared_rank, args=(2, os.path.join(d, "rdzv"), out), nprocs=2)
+        got = json.loads(Path(out).read_text())
+    if not got["shared"]:
+        log(f"[mesh] two gloo ranks on the one card with CUDA tensors: not possible here "
+            f"({got['error']}); the (1, 2) tensor-parallel serve step not run "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return
+    stats = got["stats"]
+    max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
+    calls = (1 + DRYRUN_DECODE_STEPS) * 7 * TRAIN_CUT_LAYERS
+    assert stats["max_err"] == 0 and stats["calls"] == calls, (stats, calls)
+    assert got["equal"], got
+    log(f"[mesh] two gloo ranks on the one card, a (1, 2) mesh (tensor parallel), "
+        f"{TRAIN_ARCH} {TRAIN_CUT_LAYERS} layers full width, mitchell: prefill + "
+        f"{DRYRUN_DECODE_STEPS} serve steps, rank 0's {stats['calls']} mitchell_matmul calls "
+        f"== plain (max |err| {stats['max_err']}); logits byte-equal to the unmeshed steps' "
+        f"(max |diff| {got['max_abs']:.6g}); collectives {got['collectives']} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_mesh(device: torch.device, max_err: dict, smi: str,
@@ -2484,7 +2622,8 @@ def phase_mesh(device: torch.device, max_err: dict, smi: str,
         for method in LM_METHODS:
             plain = (unmeshed or {}).get(method)
             rows[method], got = phase_mesh_method(method, mesh, device,
-                                                  None if plain is None else plain["first"])
+                                                  None if plain is None else plain["first"],
+                                                  restore=method == LM_METHODS[0])
             for name in MATMUL_KERNELS:
                 launches[name] += got[name]
     for method, row in rows.items():
@@ -2502,22 +2641,27 @@ def phase_mesh(device: torch.device, max_err: dict, smi: str,
             + ("-" if plain is None or plain["busy"] is None else f"{plain['busy']:.4f}")
             + f", peak GiB {row['peak_gib']:.3f} / "
             + ("-" if plain is None else f"{plain['peak_gib']:.3f}")
-            + f"; collectives a step {kinds} ({volume / 2**20:.1f} MiB) / none; sharded "
-            f"save {row['save_ms']:.1f} ms, restore {row['restore_ms']:.1f} ms")
+            + f"; collectives a step {kinds} ({volume / 2**20:.1f} MiB) / none"
+            + ("" if row["restore_ms"] is None else f"; sharded save {row['save_ms']:.1f} ms, "
+               f"restore {row['restore_ms']:.1f} ms"))
     phase_mesh_ranks()
+    phase_tp_shared_card(max_err)
     log(f"[mesh] phase {time.perf_counter() - t0:.1f} s (host clock); main-path launches "
         f"{launches}")
     return launches
 
 
-DRYRUN_CELLS = (("decode_32k", "both", 2), ("train_4k", "single", 1))   # (shape, mesh, ok)
+#: (arch, shape, mesh, cells ok): nemotron-4-340b's prefill was refused
+#: before the per-layer gather (its params whole pass the card)
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", "both", 2), ("qwen2-0.5b", "train_4k", "single", 1),
+                ("nemotron-4-340b", "prefill_32k", "single", 1))
 DRYRUN_TIMEOUT_S = 240
 DRYRUN_DECODE_STEPS = 3
 
 
 def dryrun_cli() -> tuple[str, list[subprocess.Popen]]:
-    """Start `python -m repro_torch.launch.dryrun` for TRAIN_ARCH's
-    DRYRUN_CELLS, each in a process of its own (fake CUDA tensors over a
+    """Start `python -m repro_torch.launch.dryrun` for the DRYRUN_CELLS,
+    each in a process of its own (fake CUDA tensors over a
     fake process group of 256 or 512 ranks, on the host's cores while the
     earlier phases use the card); -> (their directory, the processes),
     both ended at exit if the script stops before `dryrun_records`."""
@@ -2526,13 +2670,13 @@ def dryrun_cli() -> tuple[str, list[subprocess.Popen]]:
     import tempfile
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = []
-    for shape, mesh, _ in DRYRUN_CELLS:
-        log_path = os.path.join(out_dir, f"{shape}__{mesh}.log")
+    for arch, shape, mesh, _ in DRYRUN_CELLS:
+        log_path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.log")
         with open(log_path, "w") as out:
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", TRAIN_ARCH,
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                  "--shape", shape, "--mesh", mesh, "--out", os.path.join(out_dir, "records")],
                 env=env, stdout=out, stderr=subprocess.STDOUT, text=True))
 
@@ -2548,14 +2692,14 @@ def dryrun_cli() -> tuple[str, list[subprocess.Popen]]:
 def dryrun_records(out_dir: str, procs: list[subprocess.Popen]) -> None:
     """Wait for the DRYRUN_CELLS processes; each must exit 0 with its cells
     ok; print every record's terms."""
-    for proc, (shape, mesh, n_ok) in zip(procs, DRYRUN_CELLS):
+    for proc, (arch, shape, mesh, n_ok) in zip(procs, DRYRUN_CELLS):
         try:
             proc.wait(timeout=DRYRUN_TIMEOUT_S)
         finally:
             proc.kill()
-        out = Path(out_dir, f"{shape}__{mesh}.log").read_text()
+        out = Path(out_dir, f"{arch}__{shape}__{mesh}.log").read_text()
         assert proc.returncode == 0 and f"ok={n_ok} fail=0" in out, \
-            f"dryrun {shape} --mesh {mesh}: rc {proc.returncode}\n{out[-4000:]}"
+            f"dryrun {arch} {shape} --mesh {mesh}: rc {proc.returncode}\n{out[-4000:]}"
     records = os.path.join(out_dir, "records")
     for name in sorted(os.listdir(records)):
         rec = json.load(open(os.path.join(records, name)))
@@ -2568,7 +2712,9 @@ def dryrun_records(out_dir: str, procs: list[subprocess.Popen]) -> None:
             f"collective {r['collective_s'] * 1e3:.4f} ms: {r['bottleneck']}; useful "
             f"{r['useful_ratio']:.4f}; arguments {ma['argument_size_in_bytes'] / 2**30:.3f} GiB, "
             f"peak {(ma['argument_size_in_bytes'] + ma['temp_size_in_bytes']) / 2**30:.3f} GiB "
-            f"of {rec['card']['hbm_bytes'] / 2**30:.2f} (fits {rec['fits_hbm']})")
+            f"of {rec['card']['hbm_bytes'] / 2**30:.2f} (fits {rec['fits_hbm']}); "
+            f"{rec['counts']['collectives'].get('all_gather', 0)} all-gathers, layers "
+            f"{rec.get('tensor_parallel') or 'unsplit'}")
 
 
 def dryrun_train_cell(device: torch.device, smi: str, unmeshed: dict | None) -> None:
@@ -2630,10 +2776,11 @@ def serve_mesh_generate(model, params, caches, prompt, mesh=None) -> dict:
 def dryrun_serve_mesh(device: torch.device, max_err: dict) -> dict[str, int]:
     """Prefill and DRYRUN_DECODE_STEPS decode steps of TRAIN_ARCH at
     TRAIN_CUT_LAYERS layers, full width, at LM_TRAFFIC's batch and prompt,
-    through the meshed serve steps on a (1, 1) NCCL mesh under exact and
-    mitchell: logits and caches byte-equal to the unmeshed steps, every
-    `mitchell_matmul` call of the meshed run equal to its plain version;
-    -> the matmul kernels' launches in the meshed runs."""
+    through the meshed serve steps (the per-layer gather, the split
+    layers) on a (1, 1) NCCL mesh under exact, mitchell and
+    karatsuba_int16: logits and caches byte-equal to the unmeshed steps,
+    every `mitchell_matmul` / limb kernel call of the meshed run equal to
+    its plain version; -> the matmul kernels' launches in the meshed runs."""
     import tempfile
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -2645,7 +2792,7 @@ def dryrun_serve_mesh(device: torch.device, max_err: dict) -> dict[str, int]:
     launches = dict.fromkeys(MATMUL_KERNELS, 0)
     with tempfile.TemporaryDirectory() as d, nccl_world(0, 1, os.path.join(d, "rdzv")):
         mesh = make_host_mesh()
-        for method in ("exact", "mitchell"):
+        for method in LM_METHODS:
             cfg = train_cut(method)
             model = build_model(cfg)
             params = model.init(torch.Generator(device).manual_seed(0))
@@ -2660,25 +2807,28 @@ def dryrun_serve_mesh(device: torch.device, max_err: dict) -> dict[str, int]:
             stats = {"calls": 0, "max_err": 0}
             reset_matmul_launches()
             shd.reset_collectives()
-            with checked_mitchell(stats):
+            checked = checked_limbs if method == "karatsuba_int16" else checked_mitchell
+            kernel = "karatsuba_matmul_i8" if method == "karatsuba_int16" else "mitchell_matmul"
+            with checked(stats):
                 got = serve_mesh_generate(model, p, c, prompt, mesh)
             torch.cuda.synchronize()
             for name, n in matmul_launches().items():
                 launches[name] += n
             coll = dict(shd.COLLECTIVES)
-            max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
+            max_err[kernel] = max(max_err[kernel], stats["max_err"])
             equal = (all(torch.equal(g, w) for g, w in zip(got["logits"], want["logits"]))
                      and all(torch.equal(g, w) for g, w in zip(got["caches"], want["caches"])))
             assert equal and stats["max_err"] == 0, (method, stats)
             calls = (prefill_calls(cfg) + DRYRUN_DECODE_STEPS * dense_calls(cfg)
-                     if method == "mitchell" else 0)
-            assert stats["calls"] == calls and matmul_launches()["mitchell_matmul"] == calls, \
+                     if method != "exact" else 0)
+            assert stats["calls"] == calls and matmul_launches()[kernel] == calls, \
                 (method, stats, matmul_launches())
             log(f"[dryrun] serve mesh (1, 1), {TRAIN_ARCH} {TRAIN_CUT_LAYERS} layers full width, "
                 f"{method}: prefill of {batch} x {prompt_len} + {DRYRUN_DECODE_STEPS} decode "
-                f"steps, logits of every step and {len(want['caches'])} caches byte-equal to "
-                f"the unmeshed steps; {stats['calls']} mitchell_matmul calls == plain (max "
-                f"|err| {stats['max_err']}); collectives {coll}")
+                f"steps through the per-layer gather, logits of every step and "
+                f"{len(want['caches'])} caches byte-equal to the unmeshed steps; "
+                f"{stats['calls']} {kernel} calls == plain (max |err| {stats['max_err']}); "
+                f"collectives {coll}")
             del model, params, p, c, want, got
     torch.cuda.empty_cache()
     return launches
@@ -3263,9 +3413,9 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
                     **bound(coef_bytes, pixel_ops),
                     "library_ms": lib_ms[lib], "library": library})
         for method in METHODS:
-            main_method = method in ("refmlm", "exact")
-            runs = plain_runs if not big else 1
-            warm = 1 if main_method or not big else 0
+            # at the big shape the plain versions take seconds a call: not
+            # timed there
+            runs = 0 if big else plain_runs
             rk = dict(method=method, nbits=8, **direct_kw)
             fk = dict(method=method, nbits=8, nbits2=16, **sep_kw)
             ops_direct = recurse_pixel_ops(method, fig9, 8)
@@ -3290,7 +3440,8 @@ def phase_times(inputs: dict[tuple, torch.Tensor],
                         "variant0_device_ms": time_ms_batched(tiled)}
                 if method in ("refmlm", "refmlm_nc"):
                     row_["earlier_ops_per_pixel"] = earlier
-                row_.update({"plain_ms": time_ms(plain, runs, warmup=warm), "plain_runs": runs,
+                row_.update({"plain_ms": time_ms(plain, runs, warmup=1) if runs else None,
+                             "plain_runs": runs,
                              "ops_per_pixel": pixel_ops, **bound(coef_bytes, pixel_ops),
                              "library_ms": lib_ms[lib],
                              "library": library + ("" if method in ("exact", "refmlm") else
@@ -3839,6 +3990,11 @@ def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
     return results
 
 
+def stamp(t_start: float, what: str) -> None:
+    """The host seconds since the script's start, after `what`."""
+    log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s (host clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3851,37 +4007,59 @@ def main() -> int:
     device = torch.device("cuda")
     kind, smi, int32_ops_per_s = phase_card()
     phase_build()
+    stamp(t_start, 'phase_build')
     dryrun = dryrun_cli()
     from repro_torch.filters.conv import KERNELS
     max_err = dict.fromkeys(KERNELS + MATMUL_KERNELS, 0)
     phase_parity(max_err)
+    stamp(t_start, 'phase_parity')
     phase_recurse_parity(max_err)
+    stamp(t_start, 'phase_recurse_parity')
     phase_range_parity(max_err)
+    stamp(t_start, 'phase_range_parity')
     phase_matmul_parity(max_err, device)
+    stamp(t_start, 'phase_matmul_parity')
     launches, main_frames = phase_main(device)
     main_routes = route_launches()
+    stamp(t_start, 'route_launches')
+    phase_batch_fold(main_frames)
+    stamp(t_start, 'phase_batch_fold')
     mm_launches, (x, w) = phase_matmul_main(device)
     infer_launches = phase_infer_main(device)
+    stamp(t_start, 'phase_infer_main')
     for name in ("mitchell_matmul", "karatsuba_matmul_i8"):
         launches[name] = mm_launches[name] + infer_launches[name]
     launches["karatsuba_matmul"] = phase_wide_main(device)["karatsuba_matmul"]
     scale_frames = phase_scale(device)
+    stamp(t_start, 'phase_scale')
     inputs = {MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames}
     tile_times = phase_tiles(inputs, max_err)
+    stamp(t_start, 'phase_tiles')
     phase_tune(inputs)
+    stamp(t_start, 'phase_tune')
     phase_sharded(inputs)
+    stamp(t_start, 'phase_sharded')
     phase_streamed()
+    stamp(t_start, 'phase_streamed')
     serve_launches = phase_serve(device)
     phase_pool(device)
+    stamp(t_start, 'phase_pool')
     lm_launches, lm_mitchell_ms = phase_lm(device, max_err, int32_ops_per_s)
+    stamp(t_start, 'phase_lm')
     train_launches, train_mitchell_ms, train_numbers = phase_train(device, max_err,
                                                                    int32_ops_per_s)
+    stamp(t_start, 'phase_train')
     mesh_launches = phase_mesh(device, max_err, smi, train_numbers)
+    stamp(t_start, 'phase_mesh')
     dryrun_launches = phase_dryrun(device, max_err, smi, train_numbers, dryrun)
+    stamp(t_start, 'phase_dryrun')
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
+    stamp(t_start, 'phase_times')
     mm_times = phase_matmul_times(x, w, int32_ops_per_s)
+    stamp(t_start, 'phase_matmul_times')
     train_times = train_kernel_times(int32_ops_per_s, device, max_err)["train_step"]
+    stamp(t_start, 'train_kernel_times')
     log(f"[times] mitchell_matmul a {TRAIN_ARCH} train step: {train_times['mitchell_matmul']:.6f} "
         f"ms summed at its shapes, " + ("not measured" if train_mitchell_ms is None
                                         else f"{train_mitchell_ms:.6f} ms")

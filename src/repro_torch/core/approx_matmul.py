@@ -32,9 +32,20 @@ counterpart: chunking does not change the result, and float32 matmuls run
 in full float32 (TF32 is off for matmuls by default in PyTorch).
 
 The activation operand `a` is quantized inside `core.collectives.
-batch_rows()`: its rows are batch rows, so in the data-parallel train
-step, which splits them over the ranks, its abs-max spans every rank's
-rows (`core.quant`); the weight `b` is whole on every rank.
+batch_rows()`: its rows are batch rows, so in a meshed step, which splits
+them over the row axes, its abs-max spans every rank's rows (`core.quant`).
+The weight `b` inside `core.collectives.weight_block()`.
+
+`split` is the product's tensor-parallel split over "model"
+(`core.collectives.model_axis`, None outside a meshed step): "col", `b`
+is a block of the weight's columns (N), and the result the same columns;
+"row", `b` is a block of its rows (K) and `a` the same block of its
+columns. Either way the abs-max of a split operand spans "model", so each
+rank quantizes to the integers of the unsplit product; under "row" the
+accumulator (the int32 sums, or the plain LNS route's float32 sums of
+integers) is summed over "model" before the float32 rescale, so the result
+is the unsplit product's, to the byte (the int32 sum wraps as the kernel's
+own does).
 
 The kernel modules are imported inside the functions that call them, as in
 the reference: they import `repro_torch.core`, which imports this module.
@@ -47,7 +58,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.collectives import batch_rows
+from repro_torch.core.collectives import all_reduce, batch_rows, model_axis, weight_block
 from repro_torch.core.mitchell import babic_ecc, mitchell
 from repro_torch.core.odma import odma
 from repro_torch.core.platform import resolve_device
@@ -124,14 +135,22 @@ def _product_table(method: str, nbits: int, device: torch.device) -> torch.Tenso
     return scalar_multiplier(method, nbits)(v[:, None], v[None, :]).reshape(-1)
 
 
+def _reduce_acc(acc: torch.Tensor, split: str | None) -> torch.Tensor:
+    """A row-parallel product's accumulator summed over "model" (module
+    docstring); `acc` itself otherwise. It carries no grad."""
+    m = model_axis() if split == "row" else None
+    return acc if m is None else all_reduce(acc.contiguous(), "sum", m)
+
+
 def _lns_matmul(a: torch.Tensor, b: torch.Tensor, method: str,
-                nbits: int) -> torch.Tensor:
+                nbits: int, split: str | None = None) -> torch.Tensor:
     """Sign-magnitude LNS matmul: out[m,n] = sum_k mult(|a|,|b|) * sign,
     the products summed in float32 like the reference's."""
     mult = scalar_multiplier(method, nbits)
-    with batch_rows():
+    with batch_rows(split):
         qa = quantize_magnitude(a, nbits)
-    qb = quantize_magnitude(b, nbits)
+    with weight_block(split):
+        qb = quantize_magnitude(b, nbits)
     sa = (qa.magnitude * qa.sign).reshape(-1, a.shape[-1])
     sb = qb.magnitude * qb.sign
     mag_b, sgn_b = sb.abs()[None], torch.sign(sb)[None]
@@ -145,12 +164,12 @@ def _lns_matmul(a: torch.Tensor, b: torch.Tensor, method: str,
         mag = mult(blk.abs()[:, :, None], mag_b).to(torch.float32)
         sgn = (torch.sign(blk)[:, :, None] * sgn_b).to(torch.float32)
         out[rows] = (mag * sgn).sum(dim=1)
-    acc = out * (qa.scale * qb.scale)
+    acc = _reduce_acc(out, split) * (qa.scale * qb.scale)
     return acc.reshape(*a.shape[:-1], b.shape[-1])
 
 
 def limb_matmul(a: torch.Tensor, b: torch.Tensor, *, karatsuba: bool,
-                kernel: bool) -> torch.Tensor:
+                kernel: bool, split: str | None = None) -> torch.Tensor:
     """Exact wide-int matmul from int8-valued limb products (3 or 4): the
     int32 partial sums come from the `karatsuba_matmul` kernel when
     `kernel`, else from its plain version (the reference's integer
@@ -160,11 +179,14 @@ def limb_matmul(a: torch.Tensor, b: torch.Tensor, *, karatsuba: bool,
         karatsuba_matmul_kernel,
         karatsuba_matmul_plain,
     )
-    with batch_rows():
+    with batch_rows(split):
         da, sa = quantize_limbs(a.reshape(-1, a.shape[-1]), karatsuba=karatsuba)
-    db, sb = quantize_limbs(b, karatsuba=karatsuba)
+    with weight_block(split):
+        db, sb = quantize_limbs(b, karatsuba=karatsuba)
     partials = karatsuba_matmul_kernel if kernel else karatsuba_matmul_plain
     hh, mid, ll = partials(da.hi, da.lo, db.hi, db.lo, karatsuba=karatsuba)
+    if split == "row" and model_axis() is not None:
+        hh, mid, ll = _reduce_acc(torch.stack([hh, mid, ll]), split).unbind(0)
     w = da.limb_bits
     acc = (hh.to(torch.float32) * float(1 << (2 * w))
            + mid.to(torch.float32) * float(1 << w) + ll.to(torch.float32))
@@ -172,28 +194,30 @@ def limb_matmul(a: torch.Tensor, b: torch.Tensor, *, karatsuba: bool,
 
 
 def kernel_lns_matmul(a: torch.Tensor, b: torch.Tensor, *, nbits: int,
-                      num_ecc: int, case_split: bool) -> torch.Tensor:
+                      num_ecc: int, case_split: bool, split: str | None = None) -> torch.Tensor:
     """LNS matmul on the `mitchell_matmul` kernel: an exact int32 sum,
     rescaled in float32. Like the reference's kernel route it takes any
     `nbits`; the reference route's multipliers stop at 16."""
     from repro_torch.kernels.mitchell_matmul import mitchell_matmul_kernel
-    with batch_rows():
+    with batch_rows(split):
         qa = quantize_magnitude(a, nbits)
-    qb = quantize_magnitude(b, nbits)
+    with weight_block(split):
+        qb = quantize_magnitude(b, nbits)
     sa = (qa.magnitude * qa.sign).reshape(-1, a.shape[-1])
-    acc = mitchell_matmul_kernel(sa, qb.magnitude * qb.sign, num_ecc=num_ecc,
-                                 case_split=case_split)
+    acc = _reduce_acc(mitchell_matmul_kernel(sa, qb.magnitude * qb.sign, num_ecc=num_ecc,
+                                             case_split=case_split), split)
     out = acc.to(torch.float32) * (qa.scale * qb.scale)
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
-def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _int8_matmul(a: torch.Tensor, b: torch.Tensor, split: str | None = None) -> torch.Tensor:
     from repro_torch.kernels.karatsuba_matmul import int_matmul
-    with batch_rows():
+    with batch_rows(split):
         qa = quantize_magnitude(a, 7)      # int8 symmetric: magnitudes < 128
-    qb = quantize_magnitude(b, 7)
-    acc = int_matmul((qa.magnitude * qa.sign).reshape(-1, a.shape[-1]),
-                     qb.magnitude * qb.sign)
+    with weight_block(split):
+        qb = quantize_magnitude(b, 7)
+    acc = _reduce_acc(int_matmul((qa.magnitude * qa.sign).reshape(-1, a.shape[-1]),
+                                 qb.magnitude * qb.sign), split)
     out = acc.to(torch.float32) * (qa.scale * qb.scale)
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
@@ -211,29 +235,34 @@ def resolve_impl(impl: str, method: str, device: torch.device) -> str:
 
 def matmul(a, b, method: str = "exact", *, nbits: int = 8,
            impl: str = "reference",
-           device: str | torch.device | None = None) -> torch.Tensor:
+           device: str | torch.device | None = None,
+           split: str | None = None) -> torch.Tensor:
     """Unified (..., M, K) x (K, N) matmul over the multiplier family, on
     `device` (the CUDA card by default); -> float32 (..., M, N).
 
     `impl` selects the implementation ('reference' | 'kernel' | 'auto',
-    module docstring)."""
+    module docstring); `split` the tensor-parallel split (None, "col",
+    "row"; module docstring)."""
+    from repro_torch.core.collectives import reduce_from_model
     dev = resolve_device(device)
     a = torch.as_tensor(a).to(dev)
     b = torch.as_tensor(b).to(dev)
     if method == "exact":
-        return torch.matmul(a, b)
+        y = torch.matmul(a, b)
+        return reduce_from_model(y, model_axis()) if split == "row" else y
     if method == "int8":
-        return _int8_matmul(a, b)
+        return _int8_matmul(a, b, split)
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; valid: {METHODS}")
     kernel = resolve_impl(impl, method, dev) == "kernel"
     if method in KERNEL_LIMB_METHODS:
-        return limb_matmul(a, b, karatsuba=method == "karatsuba_int16", kernel=kernel)
+        return limb_matmul(a, b, karatsuba=method == "karatsuba_int16", kernel=kernel,
+                           split=split)
     if kernel:
         num_ecc, case_split = lns_kernel_args(method)
         return kernel_lns_matmul(a, b, nbits=nbits, num_ecc=num_ecc,
-                                 case_split=case_split)
-    return _lns_matmul(a, b, method, nbits)
+                                 case_split=case_split, split=split)
+    return _lns_matmul(a, b, method, nbits, split)
 
 
 __all__ = ["IMPLS", "KERNEL_LIMB_METHODS", "KERNEL_LNS_METHODS", "METHODS",

@@ -42,6 +42,31 @@ def shift_right_int32(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, x >> s.clamp(0, 31), torch.where(x < 0, -1, 0))
 
 
+def mantissa(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The integer mantissa x - 2^k (the bits below the leading one), int32
+    as the reference's."""
+    x = wrap32(x.to(torch.int64))
+    return wrap32(x - torch.where(x > 0, shift_left_int32(torch.ones_like(x),
+                                                          k.to(torch.int64)), 0)
+                  ).to(torch.int32)
+
+
+def decode_power(k: torch.Tensor) -> torch.Tensor:
+    """The decoder: characteristic k -> 2^k, int32 (the paper's d)."""
+    k = k.to(torch.int64)
+    return shift_left_int32(torch.ones_like(k), k).to(torch.int32)
+
+
+def popcount(x: torch.Tensor, nbits: int = 32) -> torch.Tensor:
+    """Set bits among the low `nbits` of each element's uint32 value
+    (the ODMA error analysis); int32."""
+    x = x.to(torch.int64) & ((1 << 32) - 1)
+    c = torch.zeros_like(x)
+    for i in range(nbits):
+        c = c + ((x >> i) & 1)
+    return c.to(torch.int32)
+
+
 def bit_width_mask(nbits: int) -> int:
     return (1 << nbits) - 1
 
@@ -54,5 +79,5 @@ def split_halves(x: torch.Tensor, nbits: int) -> tuple[torch.Tensor, torch.Tenso
     return (x >> half) & bit_width_mask(half), x & bit_width_mask(half)
 
 
-__all__ = ["bit_width_mask", "leading_one_position", "shift_left_int32",
-           "shift_right_int32", "split_halves", "wrap32"]
+__all__ = ["bit_width_mask", "decode_power", "leading_one_position", "mantissa", "popcount",
+           "shift_left_int32", "shift_right_int32", "split_halves", "wrap32"]

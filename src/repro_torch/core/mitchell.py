@@ -87,5 +87,48 @@ def babic_ecc(a: torch.Tensor, b: torch.Tensor, nbits: int = 16,
     return wrap_int32(total)
 
 
+def mitchell_residual_operands(a: torch.Tensor,
+                               b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Operands whose exact product is Mitchell's error (eqs. 11 / 13):
+    (x1, x2) while the mantissas' sum has no carry, else (2^k1 - x1, 2^k2
+    - x2); (0, 0) for a zero operand. int32, wrapped as the reference's."""
+    a, b = wrap32(a.to(torch.int64)), wrap32(b.to(torch.int64))
+    k1, x1 = characteristic_and_mantissa(a)
+    k2, x2 = characteristic_and_mantissa(b)
+    m = wrap32(shift_left_int32(x1, k2) + shift_left_int32(x2, k1))
+    carry = m >= shift_left_int32(torch.ones_like(k1), k1 + k2)
+    ra = torch.where(carry, wrap32(shift_left_int32(torch.ones_like(k1), k1) - x1), x1)
+    rb = torch.where(carry, wrap32(shift_left_int32(torch.ones_like(k2), k2) - x2), x2)
+    zero = (a == 0) | (b == 0)
+    return (torch.where(zero, 0, ra).to(torch.int32), torch.where(zero, 0, rb).to(torch.int32))
+
+
+def mitchell_corrected(a: torch.Tensor, b: torch.Tensor, nbits: int = 16) -> torch.Tensor:
+    """Mitchell's own analytic correction (eq. 14): MA plus the exact
+    product of the residual operands; exact by construction, and an
+    oracle (it needs the second multiplier REFMLM removes). int32, the
+    sum wrapped as the reference's."""
+    _check_width(nbits)
+    ra, rb = mitchell_residual_operands(a, b)
+    return wrap_int32(mitchell(a, b, nbits).to(torch.int64)
+                      + wrap_int32(ra.to(torch.int64) * rb.to(torch.int64)))
+
+
+def mitchell_truncated_float(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mitchell on real values (the LNS research path): log2|x| ~ k + f,
+    piecewise linear; the product carries sign(a) * sign(b). Exact at
+    powers of two, error <= 11.1%."""
+    sa, sb = torch.sign(a), torch.sign(b)
+    aa, ab = a.abs(), b.abs()
+    ea = torch.floor(torch.log2(torch.where(aa > 0, aa, torch.ones_like(aa))))
+    eb = torch.floor(torch.log2(torch.where(ab > 0, ab, torch.ones_like(ab))))
+    fa = aa / torch.exp2(ea) - 1.0          # mantissa fraction in [0, 1)
+    fb = ab / torch.exp2(eb) - 1.0
+    s = fa + fb
+    p = torch.where(s < 1.0, torch.exp2(ea + eb) * (1.0 + s), torch.exp2(ea + eb + 1.0) * s)
+    return sa * sb * torch.where((aa == 0) | (ab == 0), torch.zeros_like(p), p)
+
+
 __all__ = ["MAX_NBITS", "babic_bb", "babic_ecc", "characteristic_and_mantissa",
-           "mitchell", "wrap_int32"]
+           "mitchell", "mitchell_corrected", "mitchell_residual_operands",
+           "mitchell_truncated_float", "wrap_int32"]

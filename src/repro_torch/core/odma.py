@@ -27,4 +27,16 @@ def odma(a: torch.Tensor, b: torch.Tensor, nbits: int = 16) -> torch.Tensor:
                       + mitchell(p2a, p2b, nbits))
 
 
-__all__ = ["decompose", "odma"]
+def odma_exact_identity(a: torch.Tensor, b: torch.Tensor, nbits: int = 16) -> torch.Tensor:
+    """The decomposition identity with exact products (an oracle), in the
+    reference's lane: int32 while 2 * nbits <= 31, wrapped; uint32 at 16
+    bits, modulo 2**32."""
+    _check_width(nbits)
+    p1a, p1b, p2a, p2b = decompose(a, b, nbits)
+    total = p1a * p1b + p2a * p2b
+    if 2 * nbits <= 31:
+        return wrap_int32(total)
+    return (total & ((1 << 32) - 1)).to(torch.uint32)
+
+
+__all__ = ["decompose", "odma", "odma_exact_identity"]

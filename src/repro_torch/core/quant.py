@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.collectives import rows_max
+from repro_torch.core.collectives import operand_max
 
 
 class QuantizedMagnitude(NamedTuple):
@@ -37,12 +37,14 @@ def f32(value: float, like: torch.Tensor) -> torch.Tensor:
 
 def _absmax_scale(x: torch.Tensor, qlim: float, axis: int | None) -> torch.Tensor:
     """max(|x|, 1e-30) / qlim in float32, over all of x or along `axis`.
-    An operand of batch rows (`collectives.batch_rows`) while the rows
-    are split over the ranks takes the max over every rank's rows, as the
-    reference's does over its global batch (`collectives.rows_max`);
+    An operand split over ranks takes the max over all of them, as the
+    reference's does over its global operand (`collectives.operand_max`): an
+    operand of batch rows (`collectives.batch_rows`) over the row axes,
+    and a weight block or an activation split over "model"
+    (`collectives.weight_block`, `batch_rows("row")`) over "model" too;
     anything else, x's own."""
     absx = x.abs().to(torch.float32)
-    amax = rows_max(absx) if axis is None else absx.amax(dim=axis, keepdim=True)
+    amax = operand_max(absx) if axis is None else absx.amax(dim=axis, keepdim=True)
     return torch.maximum(amax, f32(1e-30, x)) / f32(qlim, x)
 
 

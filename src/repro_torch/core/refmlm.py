@@ -132,4 +132,16 @@ def refmlm(a: torch.Tensor, b: torch.Tensor, nbits: int = 16, *,
     return impl(a, b, nbits, base_fn, variant)
 
 
-__all__ = ["SUPPORTED_WIDTHS", "efmlm2", "mlm2", "refmlm"]
+def op_counts(nbits: int, variant: str = "kom4") -> dict[str, int]:
+    """Analytic operation counts of an n x n product (the paper's LUT
+    table, Table 9): base 2x2 multiplies and word adds."""
+    if nbits == 2:
+        return {"base_mults": 1, "adds": 0}
+    sub = op_counts(nbits // 2, variant)
+    if variant == "kom4":               # 4 sub-products, 3 combining adds
+        return {"base_mults": 4 * sub["base_mults"], "adds": 4 * sub["adds"] + 3}
+    # kom3: 3 sub-products; 2 operand subs + 2 adds for mid + 2 combining adds
+    return {"base_mults": 3 * sub["base_mults"], "adds": 3 * sub["adds"] + 6}
+
+
+__all__ = ["SUPPORTED_WIDTHS", "efmlm2", "mlm2", "op_counts", "refmlm"]

@@ -45,12 +45,16 @@ compiled for every tile of a menu (`repro_torch.tuning.blocks.TILE_MENU`,
 one library a tile), and `conv2d_pass` / `fused_separable_pass` resolve
 unset fields through the tuning cache (`resolve_blocks`: explicit, then
 cached, then the route's first tile). An explicit tile off the menu raises
-ValueError and `batch_fold=True` NotImplementedError on the card. On the
-CPU the fields are the reference's vocabulary, checked as the reference
+ValueError on the card. `batch_fold=True` folds the batch on the host, as
+the reference does around its pass (`_fold_batch`): each image padded
+with its kh//2 zero rows, the same pass run on the tall (1, N*(H+2ph), W)
+image, its halo rows cropped; the embedded zero rows are the halo each
+image's own pass reads, so the bytes are the unfolded pass's. On the CPU
+the tile fields are the reference's vocabulary, checked as the reference
 checks an explicit `block_cols`; the plain versions ignore them, since
-the bytes never depend on the tile. The recurse wrappers also take
-`chunk`, the rows a thread of the persistent kernel holds at once, which
-the tuner sweeps (`chunk_menu`).
+the bytes never depend on the tile, and an explicit fold folds there too.
+The recurse wrappers also take `chunk`, the rows a thread of the
+persistent kernel holds at once, which the tuner sweeps (`chunk_menu`).
 """
 from __future__ import annotations
 
@@ -545,23 +549,37 @@ def _host_taps(taps) -> np.ndarray:
 
 def pass_tile(x: torch.Tensor, kind: str, kh: int, kw: int, impl: str,
               block_rows: int | None, block_cols: int | None,
-              batch_fold: bool | None) -> tuple[int, int] | None:
-    """The menu tile a pass of `kind` ('direct' | 'fused') launches on x's
-    card: the explicit grid fields, the rest through the 'cuda' cache and
-    the route's first tile (`resolve_blocks`); raises for a tile off the
-    menu or a fold. On the CPU (None) only the reference's check of an
-    explicit `block_cols` applies: the plain versions ignore the grid."""
+              batch_fold: bool | None) -> tuple[tuple[int, int] | None, bool]:
+    """(the menu tile a pass of `kind` ('direct' | 'fused') launches on x's
+    card, whether it folds the batch): the explicit grid fields, the rest
+    through the 'cuda' cache and the route's first tile (`resolve_blocks`);
+    raises for a tile off the menu. On the CPU (tile None) only the
+    reference's check of an explicit `block_cols` applies: the plain
+    versions ignore the grid, and only an explicit fold folds."""
     n, h, w = x.shape
     if x.device.type != "cuda":
         bc = w if block_cols is None else min(int(block_cols), w)
         if bc < w and bc < min_block_cols(kw):
             raise ValueError(f"block_cols={bc} too narrow for a {kw // 2}-column halo")
-        return None
+        return None, bool(batch_fold) and n > 1
     cfg = resolve_blocks(kind, n, h, w, kh, kw, impl, block_rows=block_rows,
                          block_cols=block_cols, batch_fold=batch_fold,
                          backend="cuda")
-    return menu_tile(route_of(kind, kh, kw), cfg.block_rows, cfg.block_cols,
-                     cfg.batch_fold)
+    return (menu_tile(route_of(kind, kh, kw), cfg.block_rows, cfg.block_cols,
+                      cfg.batch_fold), bool(cfg.batch_fold) and n > 1)
+
+
+def _fold_batch(x: torch.Tensor, ph: int) -> torch.Tensor:
+    """(N, H, W) -> (1, N*(H+2ph), W): the images stacked into one tall
+    image, each with its own ph-row zero halo (the reference's
+    `_fold_batch`)."""
+    return F.pad(x, (0, 0, ph, ph)).reshape(1, -1, x.shape[-1])
+
+
+def _unfold_batch(out: torch.Tensor, n: int, h: int, ph: int) -> torch.Tensor:
+    """The inverse on the pass's output: each image's rows, its halo rows
+    (computed from zeros) dropped."""
+    return out.reshape(n, h + 2 * ph, out.shape[-1])[:, ph:ph + h].contiguous()
 
 
 def conv2d_pass(imgs: torch.Tensor, taps, *, method: str = "refmlm",
@@ -580,7 +598,14 @@ def conv2d_pass(imgs: torch.Tensor, taps, *, method: str = "refmlm",
         raise ValueError(f"taps must be (kh, kw), got shape {taps.shape}")
     kh, kw = taps.shape
     impl = _resolve_mult_impl(mult_impl)
-    tile = pass_tile(x, "direct", kh, kw, impl, block_rows, block_cols, batch_fold)
+    tile, fold = pass_tile(x, "direct", kh, kw, impl, block_rows, block_cols, batch_fold)
+    if fold:
+        n, h, _ = x.shape
+        return _unfold_batch(conv2d_pass(_fold_batch(x, kh // 2), taps, method=method,
+                                         nbits=nbits, shift=shift, post=post,
+                                         mult_impl=impl, block_rows=tile and tile[0],
+                                         block_cols=tile and tile[1], batch_fold=False),
+                             n, h, kh // 2)
     if impl == "kcm":
         rom = rom_stack(method, taps, nbits, x.device)
         return conv_pass_kcm(x, rom, kh, kw, shift=shift, post=post, tile=tile)
@@ -602,8 +627,15 @@ def fused_separable_pass(imgs: torch.Tensor, row, col, *,
     x = _as_batch(imgs)
     row, col = _host_taps(row).reshape(-1), _host_taps(col).reshape(-1)
     impl = _resolve_mult_impl(mult_impl)
-    tile = pass_tile(x, "fused", col.size, row.size, impl, block_rows, block_cols,
-                     batch_fold)
+    tile, fold = pass_tile(x, "fused", col.size, row.size, impl, block_rows, block_cols,
+                           batch_fold)
+    if fold:
+        n, h, _ = x.shape
+        return _unfold_batch(fused_separable_pass(
+            _fold_batch(x, col.size // 2), row, col, method=method, nbits=nbits,
+            nbits2=nbits2, shift=shift, post=post, mult_impl=impl,
+            block_rows=tile and tile[0], block_cols=tile and tile[1], batch_fold=False),
+            n, h, col.size // 2)
     if impl == "kcm":
         return fused_separable_kcm(
             x, rom_stack(method, row, nbits, x.device),

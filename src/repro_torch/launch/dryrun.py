@@ -18,12 +18,23 @@ card is present, fake CPU tensors elsewhere; the quantized methods reach
 the kernel wrappers either way (`impl='kernel'`), whose fake calls record
 the kernels' work.
 
+Every step computes on the reference's shards: the params stay sharded,
+each layer gathers only its FSDP blocks ("data", and "pod" under
+`fsdp_pod`) just before its forward, and computes on its "model" shard
+where the rules split it in whole heads, experts or vocab columns (the
+record's `tensor_parallel` says, a layer kind at a time, which did and
+which gathered a part whole: `models.transformer.tp_report`; "none" where
+no layer kind has a rule, or where the train step splits its rows over
+"model": `runtime.sharding.batch_axes`). A layer's
+gathered block is freed after it (under remat the recompute gathers
+again), so a rank's peak is its blocks at rest plus about one layer
+gathered. Adafactor and grad_compress still read whole grads
+(`train_lib`), so their train steps gather every grad and param whole at
+the update.
+
 A cell the port cannot run is an error record with the reason: the rows do
-not split over the mesh (`train_lib.row_split`: `train_4k`'s 256 rows over
-512 ranks, a MoE layer's chunks), or the rank's peak does not fit the
-card's memory (`fits_hbm`). Every step gathers the params whole before its
-forward, so a config whose whole params alone pass the card's memory is
-refused before its trace (the MoE monsters' traces take tens of minutes).
+not split over the mesh (`train_lib.row_split`: a MoE layer's chunks), or
+the rank's counted peak does not fit the card's memory (`fits_hbm`).
 """
 from __future__ import annotations
 
@@ -158,12 +169,18 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                overrides: dict | None = None,
                shape_overrides: dict | None = None):
     """Returns (counts, report, meta) for one dry-run cell."""
+    from repro_torch.models.transformer import tp_report
+    from repro_torch.runtime.sharding import activation_sharding_ctx, batch_axes
     cfg, shape = cell_config(arch, shape_name, overrides, shape_overrides)
     with fake_production_mesh(multi_pod) as mesh:
         counts, n_params = count_cell(cfg, shape, mesh)
         chips = mesh.size()
+        rows = (batch_axes(cfg, mesh, shape.global_batch // cfg.microbatches,
+                           multi_pod=multi_pod) if shape.kind == "train" else None)
+        with activation_sharding_ctx(mesh, cfg, multi_pod=multi_pod, rows=rows):
+            tp = tp_report(cfg) or "none"
     meta = {"arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod),
-            "chips": chips, "n_params": n_params,
+            "chips": chips, "n_params": n_params, "tensor_parallel": tp,
             "model_flops": model_flops(cfg, n_params, shape), "card": card()}
     if shape.kind == "train":
         meta["state_bytes"] = train_state_bytes(cfg, make_production_mesh(multi_pod=multi_pod))
@@ -178,10 +195,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
     not a compile: nothing is compiled."""
     t0 = time.perf_counter()
     try:
-        whole, hbm = param_bytes(cell_config(arch, shape_name, overrides)[0]), card()["hbm_bytes"]
-        if whole > hbm:
-            raise ValueError(f"fits_hbm: the params gathered whole, {whole / 2**30:.2f} GiB, "
-                             f"pass the card's {hbm / 2**30:.2f} GiB")
         counts, report, meta = lower_cell(arch, shape_name, multi_pod=multi_pod,
                                           overrides=overrides)
         mem = memory_analysis_dict(counts)

@@ -19,11 +19,37 @@ weights, not `dense` calls. Cross-attention (`gqa_attention(...,
 kv_override=...)`, the VLM's) attends to precomputed image keys and
 values, without RoPE, mask or cache.
 
+Tensor parallelism. Inside a meshed step with a "model" axis
+(`core.collectives.model_axis`) a layer computes on its "model" shard
+where the split is in whole units, and the step's per-layer gather
+(`models.transformer`, `*_keep`) hands it those weight blocks:
+  * GQA and cross-attention (`attn_splits`): where `num_heads` divides by
+    the axis, wq / wk / wv are column-parallel and wo row-parallel, each
+    rank on its `num_heads / model` query heads. Where `num_kv_heads` does
+    not divide, wk and wv are gathered whole, every rank projects every kv
+    head, and each takes the kv heads its query heads read. Where
+    `num_heads` does not divide (qwen2-0.5b's 14 at 16), the train step
+    splits its rows over "model" where they divide
+    (`runtime.sharding.batch_axes`) and so computes on no "model" shard;
+    elsewhere the attention is gathered whole and runs on every head on
+    every rank: the reference's divisibility fallback, reported by
+    `tp_report`.
+  * MLA: wq_b and wkv_b column-parallel over the heads, wo row-parallel;
+    wq_a, wkv_a and the latent c_kv / k_rope replicated.
+  * the MLP: wi / wg column-parallel and wo row-parallel where `d_ff`
+    divides, else gathered.
+The input of column-parallel compute passes `copy_to_model` and a
+row-parallel product is summed over the axis (`dense(..., split=)`,
+`core.approx_matmul.matmul`'s `split`), so every rank's output, and the
+cotangent of its input, is the whole layer's. Outside a meshed step
+nothing is split.
+
 Conventions:
   x: (B, S, D) activations, in the config's dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -31,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.approx_matmul import matmul as core_matmul
+from repro_torch.core.collectives import copy_to_model, model_axis, model_split, reduce_from_model
 
 Params = dict[str, Any]
 
@@ -50,15 +77,21 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = Fals
 
 
 def dense(p: Params, x: torch.Tensor, *, method: str = "exact",
-          impl: str = "auto") -> torch.Tensor:
+          impl: str = "auto", split: str | None = None) -> torch.Tensor:
     """x @ w (+ b) in x's dtype; a quantized `method` runs `core.matmul`
-    on the flattened rows with `impl`, its float32 result cast back."""
+    on the flattened rows with `impl`, its float32 result cast back.
+    `split` "col" / "row": `w` is this rank's block of the weight's
+    columns / rows over "model" (`core.approx_matmul.matmul`); a
+    row-parallel product is summed over the axis before the bias."""
     w = p["w"].to(x.dtype)
     if method == "exact":
         y = x @ w
+        if split == "row":
+            y = reduce_from_model(y, model_axis())
     else:
         y = core_matmul(x.reshape(-1, x.shape[-1]), w, method, impl=impl,
-                        device=x.device).reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+                        device=x.device, split=split
+                        ).reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -155,21 +188,71 @@ def gqa_init(gen: torch.Generator, cfg) -> Params:
     }
 
 
+def attn_splits(cfg):
+    """(the "model" axis where the attention splits its query heads over
+    it, else None; whether its kv heads split too)."""
+    m = model_split(cfg.num_heads)
+    return m, m is not None and cfg.num_kv_heads % m.size == 0
+
+
+def attn_keep(cfg, prefix: str) -> dict[str, int]:
+    """{param path: the dim kept split over "model"} of a GQA attention's
+    params under `prefix` (module docstring); {} where it is gathered."""
+    m, kv = attn_splits(cfg)
+    if m is None:
+        return {}
+    names = ("wq", "wk", "wv") if kv else ("wq",)
+    keep = {f"{prefix}/{n}/{leaf}": d for n in names for leaf, d in (("w", 1), ("b", 0))}
+    keep[f"{prefix}/wo/w"] = 0
+    return keep
+
+
+def kv_proj(p: Params, x: torch.Tensor, cfg, *, impl: str = "auto",
+            xp: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k and v projections of x (B, T, D) -> (B, T, Hkv', Dh) each:
+    this rank's kv heads where they split over "model" (from `xp`, x past
+    `copy_to_model`, made here for None), else every kv head."""
+    b, t, _ = x.shape
+    m, kv = attn_splits(cfg)
+    mm, hd = cfg.matmul_method, cfg.resolved_head_dim
+    if kv:
+        src, split, hkv = (copy_to_model(x, m) if xp is None else xp), "col", \
+            cfg.num_kv_heads // m.size
+    else:
+        src, split, hkv = x, None, cfg.num_kv_heads
+    k = dense(p["wk"], src, method=mm, impl=impl, split=split).reshape(b, t, hkv, hd)
+    v = dense(p["wv"], src, method=mm, impl=impl, split=split).reshape(b, t, hkv, hd)
+    return k, v
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, cfg, m) -> tuple[torch.Tensor, torch.Tensor]:
+    """Of every kv head (B, T, Hkv, Dh), the ones this rank's query heads
+    read: whole groups where its heads hold them, else one a query head
+    (groups of one). Their cotangents, a share each, are summed over "model"."""
+    g, hq = cfg.num_heads // cfg.num_kv_heads, cfg.num_heads // m.size
+    idx = torch.arange(m.index * hq, (m.index + 1) * hq, device=k.device) // g
+    sel = idx[::g] if hq % g == 0 else idx[:1] if g % hq == 0 else idx
+    return (copy_to_model(k, m).index_select(2, sel), copy_to_model(v, m).index_select(2, sel))
+
+
 def gqa_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                   kv_cache: Params | None = None,
                   cache_len: torch.Tensor | None = None,
                   kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
                   impl: str = "auto") -> tuple[torch.Tensor, Params | None]:
     """GQA self-attention, or cross-attention to kv_override = (k, v) (B,
-    T, Hkv, Dh): no RoPE, no mask, no cache. Returns (out, new_kv_cache);
-    kv_cache = {"k", "v"}: (B, S_max, Hkv, Dh)."""
+    T, Hkv, Dh; `kv_proj`'s heads): no RoPE, no mask, no cache. Returns
+    (out, new_kv_cache); kv_cache = {"k", "v"}: (B, S_max, Hkv, Dh), this
+    rank's kv heads where they split over "model"."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     mm = cfg.matmul_method
-    q = dense(p["wq"], x, method=mm, impl=impl).reshape(b, s, cfg.num_heads, hd)
+    m, kv_split = attn_splits(cfg)
+    xp = copy_to_model(x, m)
+    q = dense(p["wq"], xp, method=mm, impl=impl, split="col" if m else None
+              ).reshape(b, s, cfg.num_heads // (m.size if m else 1), hd)
     if kv_override is None:
-        k = dense(p["wk"], x, method=mm, impl=impl).reshape(b, s, cfg.num_kv_heads, hd)
-        v = dense(p["wv"], x, method=mm, impl=impl).reshape(b, s, cfg.num_kv_heads, hd)
+        k, v = kv_proj(p, x, cfg, impl=impl, xp=xp)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         causal = cfg.causal
@@ -199,19 +282,40 @@ def gqa_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         vc = _scatter_cache(kv_cache["v"], v, idx)
         new_cache = {"k": kc, "v": vc}
         k, v = kc, vc
+    if m is not None and not kv_split:
+        k, v = _local_kv(k, v, cfg, m)
 
     o = _sdpa(q, k, v, causal=causal, q_offset=q_offset,
               softcap=cfg.attn_logit_softcap, valid_mask=valid_mask,
               chunk_q=cfg.attn_chunk_q,
               scores_dtype=getattr(torch, cfg.attn_scores_dtype))
-    return dense(p["wo"], o.reshape(b, s, -1), method=mm, impl=impl), new_cache
+    return (dense(p["wo"], o.reshape(b, s, -1), method=mm, impl=impl,
+                  split="row" if m else None), new_cache)
+
+
+_DONATED = False                    # inside donated_caches()
+
+
+@contextlib.contextmanager
+def donated_caches():
+    """While active, the caches a step is given are donated to it, as a
+    jitted step's donated arguments: new keys and values are written into
+    them in place, not into copies (the meshed serve steps, which write
+    each rank's blocks back, and so hold one cache a layer, not two)."""
+    global _DONATED
+    prev, _DONATED = _DONATED, True
+    try:
+        yield
+    finally:
+        _DONATED = prev
 
 
 def _scatter_cache(cache: torch.Tensor, new: torch.Tensor,
                    idx: torch.Tensor) -> torch.Tensor:
     """A copy of cache (B, Smax, H, D) with new (B, s, H, D) written at the
-    per-batch positions idx (B, s)."""
-    out = cache.clone()
+    per-batch positions idx (B, s); the cache itself, written in place,
+    inside `donated_caches()`."""
+    out = cache if _DONATED else cache.clone()
     bidx = torch.arange(cache.shape[0], device=cache.device)[:, None]
     out[bidx, idx.long()] = new.to(cache.dtype)
     return out
@@ -233,6 +337,14 @@ def mla_init(gen: torch.Generator, cfg) -> Params:
     }
 
 
+def mla_keep(cfg, prefix: str) -> dict[str, int]:
+    """{param path: dim kept split over "model"} of an MLA attention:
+    wq_b and wkv_b by their heads' columns, wo by its rows."""
+    if model_split(cfg.num_heads) is None:
+        return {}
+    return {f"{prefix}/wq_b/w": 1, f"{prefix}/wkv_b/w": 1, f"{prefix}/wo/w": 0}
+
+
 def mla_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                   kv_cache: Params | None = None,
                   cache_len: torch.Tensor | None = None,
@@ -243,12 +355,15 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     (out, new_cache); kv_cache = {"c_kv" (B, S_max, r), "k_rope" (B, S_max,
     1, dr)}, in the model dtype. Always causal."""
     b, s, _ = x.shape
-    h, r = cfg.num_heads, cfg.kv_lora_rank
+    m = model_split(cfg.num_heads)
+    h, r = cfg.num_heads // (m.size if m else 1), cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     mm = cfg.matmul_method
+    col, row = ("col", "row") if m else (None, None)
 
     ql = apply_norm(p["q_norm"], dense(p["wq_a"], x, method=mm, impl=impl), cfg.norm)
-    q = dense(p["wq_b"], ql, method=mm, impl=impl).reshape(b, s, h, dn + dr)
+    q = dense(p["wq_b"], copy_to_model(ql, m), method=mm, impl=impl,
+              split=col).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -268,6 +383,7 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         k_rope = _scatter_cache(kv_cache["k_rope"], k_rope, idx)
         new_cache = {"c_kv": c_kv, "k_rope": k_rope}
         q_offset = cache_len
+    c_kv, k_rope = copy_to_model(c_kv, m), copy_to_model(k_rope, m)   # read by this rank's heads
 
     q_cat = torch.cat([q_lat, q_rope], dim=-1)                         # (B, S, h, r + dr)
     k_cat = torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)          # (B, Sk, 1, r + dr)
@@ -276,9 +392,10 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     # Python float is (on the host: a device scalar would cost a sync)
     scale_fix = float(torch.tensor(math.sqrt(r + dr) / math.sqrt(dn + dr), dtype=x.dtype))
     o_lat = _sdpa(q_cat * scale_fix, k_cat, c_kv[:, :, None, :], causal=True,
-                  q_offset=q_offset, chunk_q=cfg.attn_chunk_q)         # (B, S, h, r)
+                  q_offset=q_offset, chunk_q=cfg.attn_chunk_q)        # (B, S, h, r)
     o = torch.einsum("bshr,rhd->bshd", o_lat, w_uv)                    # (B, S, h, dv)
-    return dense(p["wo"], o.reshape(b, s, h * dv), method=mm, impl=impl), new_cache
+    return dense(p["wo"], o.reshape(b, s, h * dv), method=mm, impl=impl,
+                 split=row), new_cache
 
 
 # ------------------------------------------------------------------- MLP ----
@@ -292,18 +409,35 @@ def mlp_init(gen: torch.Generator, cfg, d_ff: int | None = None) -> Params:
     return p
 
 
-def mlp(p: Params, x: torch.Tensor, cfg, *, impl: str = "auto") -> torch.Tensor:
+def mlp_keep(d_ff: int, prefix: str) -> dict[str, int]:
+    """{param path: dim kept split over "model"} of an MLP of width `d_ff`:
+    wi / wg by their columns, wo by its rows, where `d_ff` divides."""
+    if model_split(d_ff) is None:
+        return {}
+    keep = {f"{prefix}/{n}/{leaf}": d for n in ("wi", "wg") for leaf, d in (("w", 1), ("b", 0))}
+    keep[f"{prefix}/wo/w"] = 0
+    return keep
+
+
+def mlp(p: Params, x: torch.Tensor, cfg, *, impl: str = "auto",
+        d_ff: int | None = None) -> torch.Tensor:
+    """The MLP of width `d_ff` (`cfg.d_ff` for None), tensor-parallel
+    where `mlp_keep` splits it."""
     mm = cfg.matmul_method
-    h = dense(p["wi"], x, method=mm, impl=impl)
+    m = model_split(d_ff or cfg.d_ff)
+    col, row = ("col", "row") if m else (None, None)
+    x = copy_to_model(x, m)
+    h = dense(p["wi"], x, method=mm, impl=impl, split=col)
     if cfg.mlp == "swiglu":
-        h = F.silu(dense(p["wg"], x, method=mm, impl=impl)) * h
+        h = F.silu(dense(p["wg"], x, method=mm, impl=impl, split=col)) * h
     elif cfg.mlp == "squared_relu":
         h = torch.square(F.relu(h))
     elif cfg.mlp == "gelu":
         h = F.gelu(h, approximate="tanh")        # jax.nn.gelu's default
-    return dense(p["wo"], h, method=mm, impl=impl)
+    return dense(p["wo"], h, method=mm, impl=impl, split=row)
 
 
-__all__ = ["apply_norm", "apply_rope", "dense", "dense_init", "gqa_attention",
-           "gqa_init", "mla_attention", "mla_init", "mlp", "mlp_init", "norm_init",
-           "rope_freqs"]
+__all__ = ["apply_norm", "apply_rope", "attn_keep", "attn_splits", "dense", "dense_init",
+           "donated_caches",
+           "gqa_attention", "gqa_init", "kv_proj", "mla_attention", "mla_init", "mla_keep", "mlp",
+           "mlp_init", "mlp_keep", "norm_init", "rope_freqs"]

@@ -25,6 +25,18 @@ version for the limb family and the float32-summing LNS route).
 `forward` returns the logits and the MoE layers' summed aux loss;
 `loss_fn` the reference's training loss: token cross-entropy over the
 unmasked labels, the z-loss at 1e-4 and the aux loss at 1e-2.
+
+On a mesh (`runtime.sharding.activation_sharding_ctx`) the embedding, the
+projections and the head gather their FSDP blocks where they are used,
+as the layers do (`core.collectives.fsdp_gather`), and split over the
+vocab where "model" divides it, as the reference's logits are
+(`vocab_split`): the head is column-parallel and its logits this rank's
+vocab block; the table, where `emb_vocab_sharded`, is looked up on this
+rank's rows and the partial embeddings summed over "model". `loss_fn`
+takes the logsumexp over the split vocab (a max all-reduce, then a sum
+all-reduce) and the label's logit from the rank that holds it (a sum
+all-reduce); `forward`, `prefill` and `decode_step` gather the logits
+over "model".
 """
 from __future__ import annotations
 
@@ -33,7 +45,18 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.platform import resolve_device
-from repro_torch.core.collectives import all_reduce, rows_are_split
+from repro_torch.core.collectives import (
+    all_reduce,
+    all_reduce_rows,
+    copy_to_model,
+    fsdp_gather,
+    gather_from_model,
+    gather_params,
+    model_split,
+    reduce_from_model,
+    row_groups,
+    rows_are_split,
+)
 from repro_torch.core.quant import f32
 from repro_torch.models.layers import dense, dense_init
 from repro_torch.models.transformer import backbone_apply, backbone_init, init_caches
@@ -83,36 +106,80 @@ def build_model(cfg, device: str | torch.device | None = None, *,
     def as_tensor(a, dt=None) -> torch.Tensor:
         return torch.as_tensor(a).to(dev, dt)
 
+    def vocab_split(head: bool):
+        """The "model" axis the head's (`head`) or the table's vocab splits
+        over, else None: the table where `emb_vocab_sharded` (the tied head
+        is the table), the untied head wherever the vocab divides."""
+        if head and not cfg.tie_embeddings:
+            return model_split(cfg.vocab_size)
+        return model_split(cfg.vocab_size) if cfg.emb_vocab_sharded else None
+
+    def lookup(params: Params, tokens) -> torch.Tensor:
+        """The float32 embeddings of `tokens`, cast to the model dtype: a
+        gather of the float32 table then one cast == the reference's cast
+        of the whole table then a gather."""
+        tokens = as_tensor(tokens, torch.long)
+        m = vocab_split(head=False)
+        emb = fsdp_gather(params["emb"], 0 if m else None)
+        if m is None:
+            return emb[tokens].to(dtype)
+        rows = emb.shape[0]
+        local = tokens - m.index * rows
+        held = (local >= 0) & (local < rows)
+        part = torch.where(held[..., None], emb[local.clamp(0, rows - 1)], 0.0)
+        return reduce_from_model(part, m).to(dtype)
+
     def embed(params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
         """-> (x (B, S, D), the projected image embeddings or None)."""
         if cfg.input_kind == "frames":
-            return dense(params["frame_proj"], as_tensor(batch["frames"], dtype)), None
-        # a gather of the float32 table then one cast == the reference's cast
-        # of the whole table then a gather
-        x = params["emb"][as_tensor(batch["tokens"], torch.long)].to(dtype)
+            return dense(gather_params(params["frame_proj"]),
+                         as_tensor(batch["frames"], dtype)), None
+        x = lookup(params, batch["tokens"])
         img = None
         if cfg.input_kind == "tokens+image":
-            img = dense(params["img_proj"], as_tensor(batch["image_embeds"], dtype))
+            img = dense(gather_params(params["img_proj"]), as_tensor(batch["image_embeds"], dtype))
         return x, img
 
-    def logits_of(params: Params, h: torch.Tensor) -> torch.Tensor:
+    def logits_of(params: Params, h: torch.Tensor, whole: bool = True) -> torch.Tensor:
+        """The logits of h; with a vocab split this rank's vocab block,
+        gathered over "model" when `whole`."""
+        m = vocab_split(head=True)
+        hp = copy_to_model(h, m)
         if cfg.tie_embeddings:
-            return h @ params["emb"].to(h.dtype).T
-        return dense(params["head"], h)
+            logits = hp @ fsdp_gather(params["emb"], 0 if m else None).to(h.dtype).T
+        else:
+            logits = dense(gather_params(params["head"], {"w": 1, "b": 0} if m else None), hp)
+        return gather_from_model(logits, m, logits.ndim - 1) if whole else logits
 
     def init(gen: torch.Generator) -> Params:
         if torch.device(gen.device).type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
         return {**_embed_init(gen, cfg), "backbone": backbone_init(gen, cfg)}
 
-    def forward(params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits (B, S, V), the MoE aux loss, 0 without MoE layers)."""
+    def forward(params: Params, batch: dict, whole: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits (B, S, V), the MoE aux loss, 0 without MoE layers);
+        with a vocab split and not `whole`, this rank's vocab block."""
         x, img = embed(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
         h, _, aux = backbone_apply(params["backbone"], cfg, x, positions=positions,
                                    image_embeds=img, impl=impl)
-        return logits_of(params, h), aux
+        return logits_of(params, h, whole), aux
+
+    def split_nll(logits: torch.Tensor, labels: torch.Tensor, m) -> tuple:
+        """(logsumexp, -log p(label)) over the vocab split over `m`, from
+        this rank's vocab block of the logits (module docstring)."""
+        lf = logits.to(torch.float32)
+        top = all_reduce(lf.detach().amax(-1), "max", m)
+        lse = top + torch.log(reduce_from_model(torch.exp(lf - top[..., None]).sum(-1), m))
+        rows = logits.shape[-1]
+        local = labels - m.index * rows
+        held = (local >= 0) & (local < rows)
+        src = logits if cfg.fused_lse_loss else lf
+        picked = src.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        picked = reduce_from_model(torch.where(held, picked, torch.zeros_like(picked)), m)
+        return lse, lse - picked.to(torch.float32)
 
     def loss_fn(params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
         """-> (the 0-d float32 loss, {"ce", "z_loss", "moe_aux"}): the mean
@@ -124,26 +191,31 @@ def build_model(cfg, device: str | torch.device | None = None, *,
         log-softmax in float32. A masked label's term is multiplied by 0, so
         its gathered position (clamped to 0) never counts.
 
-        While the data-parallel step splits the rows over the ranks
-        (`core.collectives.rows_are_split`), each rank's batch is its rows of the global batch, and the loss and
-        each metric are this rank's share of the global ones, which sum
-        over the ranks to them: the masked sum over the global count of
-        labels >= 0 (an all-reduce), the z-loss sum over the global token
-        count, the aux loss over the ranks' number (each rank's mean is
-        over as many whole chunks)."""
-        logits, aux = forward(params, batch)
+        While a meshed step splits the rows over its row axes
+        (`core.collectives.rows_are_split`), each rank's batch is its rows
+        of the global batch, and the loss and each metric are this rank's
+        share of the global ones, which sum over the row blocks to them:
+        the masked sum over the global count of labels >= 0 (an
+        all-reduce), the z-loss sum over the global token count, the aux
+        loss over the row blocks' number (each rank's mean is over as many
+        whole chunks). With the vocab split over "model", see `split_nll`."""
+        logits, aux = forward(params, batch, whole=False)
         labels = as_tensor(batch["labels"], torch.long)
         mask = (labels >= 0).to(torch.float32)
-        idx = labels.clamp(min=0)[..., None]
-        lse = torch.logsumexp(logits.to(torch.float32), dim=-1)            # (B, S)
-        if cfg.fused_lse_loss:
-            nll = lse - logits.gather(-1, idx)[..., 0].to(torch.float32)
+        m = vocab_split(head=True)
+        if m is not None:
+            lse, nll = split_nll(logits, labels, m)
         else:
-            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-            nll = -logp.gather(-1, idx)[..., 0]
+            idx = labels.clamp(min=0)[..., None]
+            lse = torch.logsumexp(logits.to(torch.float32), dim=-1)            # (B, S)
+            if cfg.fused_lse_loss:
+                nll = lse - logits.gather(-1, idx)[..., 0].to(torch.float32)
+            else:
+                logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+                nll = -logp.gather(-1, idx)[..., 0]
         if rows_are_split():
-            world = torch.distributed.get_world_size()
-            count = all_reduce(mask.sum())
+            world = row_groups()
+            count = all_reduce_rows(mask.sum())
             zl = 1e-4 * (torch.square(lse).sum() / f32(lse.numel() * world, lse))
             loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
             aux = aux / f32(world, aux)
@@ -178,7 +250,7 @@ def build_model(cfg, device: str | torch.device | None = None, *,
         if cfg.input_kind == "frames":
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
         tokens = as_tensor(tokens, torch.long)
-        x = params["emb"][tokens].to(dtype)
+        x = lookup(params, tokens)
         positions = cache_len[:, None] + torch.zeros_like(tokens, dtype=torch.int32)
         h, new_caches, _ = backbone_apply(params["backbone"], cfg, x,
                                           positions=positions, caches=caches,

@@ -19,6 +19,20 @@ Two places where the port must take care to give the reference's bytes:
   * memory. The reference casts all E experts to the model dtype on each
     call. The port casts and runs `EXPERT_GROUP` experts at a time: each
     expert's einsums are the full einsum's, so the bytes are the same.
+
+Expert parallelism. Inside a meshed step whose "model" axis divides E
+(`core.collectives.model_split`), each rank holds its E / model experts
+(`moe_keep`: wi / wg / wo by their expert dim) and runs them on their
+slots: the tokens, the router, the capacity and the dispatch stay global
+and replicated over "model"; each rank dispatches the tokens to its
+experts' slots, combines their outputs with their gates into a partial
+sum of every token, and the partial sums are all-reduced over "model"
+(`reduce_from_model`, the tokens' bytes a layer). The float32 sums of the
+combine then round in another order than the unsplit einsum's: the step
+is the unsplit one within float tolerance, not to the byte. In the
+backward, the tokens' cotangents are summed over "model" and the gates'
+all-gathered, so the replicated router sees the whole layer's. The shared
+experts are a tensor-parallel MLP (`layers.mlp`).
 """
 from __future__ import annotations
 
@@ -28,7 +42,13 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _randn, dense_init, mlp, mlp_init
+from repro_torch.core.collectives import (
+    copy_to_model,
+    model_split,
+    reduce_from_model,
+    split_to_model,
+)
+from repro_torch.models.layers import _randn, dense_init, mlp, mlp_init, mlp_keep
 
 Params = dict[str, Any]
 
@@ -53,21 +73,22 @@ def moe_init(gen: torch.Generator, cfg) -> Params:
     return p
 
 
-def _dispatch_combine(gates: torch.Tensor, top_k: int,
-                      capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _dispatch_gates(gates: torch.Tensor, top_k: int,
+                    capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard top-k dispatch within one chunk. gates: (T, E) float32 router
-    probabilities -> (dispatch (T, E, C) 0/1 float32, combine (T, E, C)
+    probabilities -> (dispatch (T, E, C) 0/1 float32, picked (T, E)
     float32): the k-th pick of every token takes the next free slot of its
     expert (the picks before it, of all tokens, placed first), a pick past
     the capacity C is dropped, and the gates are renormalized over the k
-    picks."""
+    picks; `picked` holds a token's renormalized gate at each expert it
+    picked, so the combine weights are `dispatch * picked[..., None]`."""
     t, e = gates.shape
     topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :top_k], topi[:, :top_k]
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
     dispatch = torch.zeros((t, e, capacity), dtype=torch.float32, device=gates.device)
-    combine = torch.zeros_like(dispatch)
+    picked = torch.zeros((t, e), dtype=torch.float32, device=gates.device)
     counts = torch.zeros((e,), dtype=torch.int32, device=gates.device)   # slots taken
     for k in range(top_k):
         onehot = F.one_hot(topi[:, k], e).to(torch.int32)                 # (T, E)
@@ -76,10 +97,26 @@ def _dispatch_combine(gates: torch.Tensor, top_k: int,
         pos_tok = pos.gather(1, topi[:, k:k + 1])[:, 0]                    # (T,)
         slot = torch.where(pos_tok < capacity, pos_tok, capacity).long()
         pos_oh = F.one_hot(slot, capacity + 1)[:, :capacity].to(torch.float32)  # drop: zeros
-        d_k = onehot.to(torch.float32)[:, :, None] * pos_oh[:, None, :]
-        dispatch = dispatch + d_k
-        combine = combine + d_k * topv[:, k][:, None, None]
-    return dispatch, combine
+        dispatch = dispatch + onehot.to(torch.float32)[:, :, None] * pos_oh[:, None, :]
+        picked = picked + onehot.to(torch.float32) * topv[:, k][:, None]
+    return dispatch, picked
+
+
+def _dispatch_combine(gates: torch.Tensor, top_k: int,
+                      capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's pair: (dispatch, combine (T, E, C) float32), the
+    combine weights of `_dispatch_gates`."""
+    dispatch, picked = _dispatch_gates(gates, top_k, capacity)
+    return dispatch, dispatch * picked[:, :, None]
+
+
+def _experts_partial(p: Params, tok: torch.Tensor, dispatch: torch.Tensor,
+                     combine: torch.Tensor) -> torch.Tensor:
+    """The experts of `p` on the tokens `tok` (T, D) dispatched to their
+    slots (`dispatch`, `combine`: (T, E', C), these experts' columns) ->
+    (T, D), their outputs summed into each token with its gates."""
+    xe = torch.einsum("tec,td->ecd", dispatch.to(tok.dtype), tok)     # (E', C, D)
+    return torch.einsum("tec,ecd->td", combine.to(tok.dtype), _routed_experts(p, xe))
 
 
 def _routed_experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
@@ -95,6 +132,20 @@ def _routed_experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
     return ye
 
 
+def shared_d_ff(cfg) -> int:
+    return cfg.moe_d_ff * cfg.num_shared_experts
+
+
+def moe_keep(cfg, prefix: str) -> dict[str, int]:
+    """{param path: dim kept split over "model"} of a MoE layer: the
+    routed experts by their expert dim where E divides, the shared experts
+    as an MLP (`layers.mlp_keep`)."""
+    keep = mlp_keep(shared_d_ff(cfg), f"{prefix}/shared") if cfg.num_shared_experts else {}
+    if model_split(cfg.num_experts) is not None:
+        keep.update({f"{prefix}/{n}": 0 for n in ("wi", "wg", "wo")})
+    return keep
+
+
 def moe_block(p: Params, x: torch.Tensor, cfg, *,
               impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux loss: a float32 scalar, the
@@ -107,20 +158,22 @@ def moe_block(p: Params, x: torch.Tensor, cfg, *,
     t = tokens.shape[0]
     tokens = F.pad(tokens, (0, 0, 0, (-t) % chunk))
     capacity = max(1, int(chunk * k * cfg.capacity_factor / e))
+    m = model_split(e)
+    lo, n = (m.index * (e // m.size), e // m.size) if m else (0, e)     # this rank's experts
 
     outs, auxs = [], []
-    for tok in tokens.split(chunk):
+    for tok, tok_m in zip(tokens.split(chunk), copy_to_model(tokens, m).split(chunk)):
         logits = tok.to(torch.float32) @ p["router"]["w"]                # (c, E)
         gates = torch.softmax(logits, dim=-1)
-        dispatch, combine = _dispatch_combine(gates, k, capacity)
-        xe = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), tok)       # (E, C, D)
-        ye = _routed_experts(p, xe)
-        outs.append(torch.einsum("tec,ecd->td", combine.to(x.dtype), ye))
+        dispatch, picked = _dispatch_gates(gates, k, capacity)
+        mine = dispatch[:, lo:lo + n]
+        combine = mine * split_to_model(picked, m, 1)[:, :, None]
+        outs.append(_experts_partial(p, tok_m, mine, combine))
         auxs.append((gates.mean(0) * dispatch.sum(2).mean(0)).sum() * e)
-    out = torch.cat(outs)[:t].reshape(b, s, d)
+    out = reduce_from_model(torch.cat(outs), m)[:t].reshape(b, s, d)
     if "shared" in p:
-        out = out + mlp(p["shared"], x, cfg, impl=impl)
+        out = out + mlp(p["shared"], x, cfg, impl=impl, d_ff=shared_d_ff(cfg))
     return out, torch.stack(auxs).mean()
 
 
-__all__ = ["EXPERT_GROUP", "moe_block", "moe_init"]
+__all__ = ["EXPERT_GROUP", "moe_block", "moe_init", "moe_keep", "shared_d_ff"]

@@ -30,6 +30,18 @@ included. The recompute is the same arithmetic, so the gradients are
 byte-equal with remat on and off. The serving path (caches, or no grad)
 never checkpoints.
 
+On a mesh (`runtime.sharding.activation_sharding_ctx`), each layer's
+params are this rank's blocks at rest, and `run` gathers a layer's blocks
+(`core.collectives.gather_params`) just before its forward: over the FSDP
+axes ("data", and "pod" under `fsdp_pod`) and over "model", except the
+blocks its tensor- or expert-parallel compute keeps (`layer_keep`). Under
+remat the gather is inside the checkpointed span, so the recompute
+gathers again, and each layer's gathered block is freed after its
+forward; the serving path frees it after the layer too. The layer kinds
+with no tensor-parallel rule (Mamba2, whose `in_proj` packs z, x, B, C
+and dt, and the xLSTM blocks) gather over every axis and compute whole,
+one layer at a time.
+
 zamba2's weight-shared attention + MLP block (`shared_block`) is built
 whenever `cfg.shared_attn_period` is set, and applied only by the
 `mamba2_shared` kind, which no config's `block_kinds()` names: the
@@ -49,18 +61,22 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch.core.collectives import gather_params
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     apply_norm,
-    dense,
+    attn_keep,
     gqa_attention,
     gqa_init,
+    kv_proj,
     mla_attention,
     mla_init,
+    mla_keep,
     mlp,
     mlp_init,
+    mlp_keep,
     norm_init,
 )
 
@@ -194,13 +210,7 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg, *, positions: torch
             if decode and cache is not None:
                 k_img, v_img = cache["k_img"], cache["v_img"]
             else:
-                bi, ti = image_embeds.shape[:2]
-                hkv, hdd = cfg.num_kv_heads, cfg.resolved_head_dim
-                mm = cfg.matmul_method
-                k_img = dense(p["xattn"]["wk"], image_embeds, method=mm,
-                              impl=impl).reshape(bi, ti, hkv, hdd)
-                v_img = dense(p["xattn"]["wv"], image_embeds, method=mm,
-                              impl=impl).reshape(bi, ti, hkv, hdd)
+                k_img, v_img = kv_proj(p["xattn"], image_embeds, cfg, impl=impl)
             ox, _ = gqa_attention(p["xattn"], hx, cfg, positions=positions,
                                   kv_override=(k_img, v_img), impl=impl)
             x = x + torch.tanh(p["xgate"]).to(x.dtype) * ox
@@ -250,6 +260,54 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg, *, positions: torch
         return x + o, new_state if cache is not None else None, None
 
     raise ValueError(kind)
+
+
+def layer_keep(kind: str, cfg) -> dict[str, int]:
+    """{param path in the layer: the dim kept split over "model"} of a
+    layer of `kind` (or of "shared_block"): its tensor- and
+    expert-parallel weights (`layers`, `moe`); every other leaf is
+    gathered whole."""
+    if kind in ATTN_KINDS:
+        keep = mla_keep(cfg, "attn") if cfg.attention == "mla" else attn_keep(cfg, "attn")
+        if kind == "moe":
+            keep.update(moe_lib.moe_keep(cfg, "moe"))
+        elif cfg.d_ff:
+            keep.update(mlp_keep(cfg.d_ff, "mlp"))
+        if kind == "attn_cross":
+            keep.update(attn_keep(cfg, "xattn"))
+        return keep
+    if kind == "shared_block":          # zamba2's shared attention + MLP
+        return {**attn_keep(cfg, "attn"), **mlp_keep(cfg.d_ff, "mlp")}
+    return {}
+
+
+def tp_report(cfg) -> dict[str, str]:
+    """How each layer kind of `cfg` computes on the current mesh: "split"
+    where all its heads / experts / MLP split over "model", "gathered"
+    where nothing does (the divisibility fallback, or a kind with no rule),
+    else "split (...)" naming the parts that are gathered. For the dry-run
+    record."""
+    from repro_torch.core.collectives import model_axis, model_split
+    if model_axis() is None:
+        return {}
+    out = {}
+    for kind in dict.fromkeys(cfg.block_kinds()):
+        parts = {}
+        if kind in ATTN_KINDS:
+            parts["attn"] = model_split(cfg.num_heads) is not None
+            if cfg.attention != "mla" and parts["attn"]:
+                parts["kv"] = cfg.num_kv_heads % model_axis().size == 0
+            if kind == "moe":
+                parts["experts"] = model_split(cfg.num_experts) is not None
+            elif cfg.d_ff:
+                parts["mlp"] = model_split(cfg.d_ff) is not None
+        if not parts or not any(parts.values()):
+            out[kind] = "gathered"
+        elif all(parts.values()):
+            out[kind] = "split"
+        else:
+            out[kind] = "split (gathered: " + ", ".join(k for k, v in parts.items() if not v) + ")"
+    return out
 
 
 # ------------------------------------------------------------- backbone -----
@@ -310,10 +368,13 @@ def backbone_apply(params: Params, cfg, x: torch.Tensor, *, positions: torch.Ten
 
     def run(start: int, n: int, x: torch.Tensor, aux_total: torch.Tensor):
         for i in range(start, start + n):
-            x, nc, aux = _apply_block(kinds[i], params["layers"][i], x, cfg,
+            p = gather_params(params["layers"][i], layer_keep(kinds[i], cfg))
+            sp = (gather_params(shared, layer_keep("shared_block", cfg))
+                  if kinds[i] == "mamba2_shared" else None)
+            x, nc, aux = _apply_block(kinds[i], p, x, cfg,
                                       positions=positions,
                                       cache=caches[i] if caches is not None else None,
-                                      cache_len=cache_len, shared_params=shared,
+                                      cache_len=cache_len, shared_params=sp,
                                       image_embeds=image_embeds, decode=decode, impl=impl)
             if aux is not None:
                 aux_total = aux_total + aux
@@ -330,8 +391,9 @@ def backbone_apply(params: Params, cfg, x: torch.Tensor, *, positions: torch.Ten
                                       preserve_rng_state=False, context_fn=context)
     else:
         x, aux_total = run(0, len(kinds), x, aux_total)
-    x = apply_norm(params["final_ln"], x, cfg.norm)
+    x = apply_norm(gather_params(params["final_ln"]), x, cfg.norm)
     return x, new_caches, aux_total
 
 
-__all__ = ["backbone_apply", "backbone_init", "init_caches", "pattern_runs", "segment_kinds"]
+__all__ = ["backbone_apply", "backbone_init", "init_caches", "layer_keep", "pattern_runs",
+           "segment_kinds", "tp_report"]

@@ -26,6 +26,11 @@ give the true depth's:
   moe           f = base + n_dense*m_attn + n_moe*m_moe (3 counts)
 
 No batch extrapolation: a count at the true batch costs no memory.
+
+The step counted is the sharded one (`launch.dryrun`): each layer gathers
+its FSDP blocks just before its forward and computes on its "model" shard
+where it splits, so a layer's gathers, like its ops, are the same at
+every depth and the terms stay affine in the layers.
 """
 from __future__ import annotations
 

@@ -6,28 +6,34 @@ cell's step: one new token against a cache of depth `seq_len`.
 
 With a `mesh` (a named `DeviceMesh` over every rank of the process group,
 `repro_torch.launch.mesh`), `make_prefill_step` and `make_serve_step` are
-the serving counterparts of the data-parallel train step
+the serving counterparts of the meshed train step
 (`runtime.train_lib.make_train_step`), where the reference jits its steps
 with `param_shardings` / `cache_shardings`:
-  * the params rest by `sharding.param_shardings` (DTensors) and are
-    gathered whole before the forward;
+  * the params rest by `sharding.param_shardings` (DTensors) and stay
+    sharded: each layer gathers its FSDP blocks just before its forward
+    and computes on its "model" shard where the rules split it in whole
+    heads, experts or vocab columns (`sharding.activation_sharding_ctx`);
   * the rows split over the rules' "batch" axes as the resolver takes them
     for the batch's rows ("data", or ("pod", "data"), and "model" under
     `prefer_dp`; an axis the rows do not divide drops out, and the ranks
     along it compute the same rows), with `train_lib.row_split`'s MoE-chunk
     check: a rank's tokens must be whole chunks of the global stream, or
     ValueError;
-  * the caches rest by `sharding.cache_shardings`. Before the step each is
-    gathered over the mesh dims that split its other dims, so that only
-    its batch dim stays split (this rank's rows, whole); afterwards each
-    rank writes its block back into the DTensor, and the step returns the
-    caches it was given;
-  * the logits (and prefill's cache_len) are gathered over the batch
-    axes: every rank returns the whole batch's, as the reference's
-    replicated outputs;
-  * the quantizer's abs-max of an activation spans every rank's rows
-    (`sharding.activation_sharding_ctx`, `core.collectives.rows_max`), as
-    in training.
+  * the caches rest by `sharding.cache_shardings`: the k and v heads over
+    "model" where the kv heads divide it. Before the step each is gathered
+    over the mesh dims that split its other dims, so that each layer gets
+    this rank's rows and, for an attention whose kv heads split over
+    "model", this rank's heads (`_cache_keep`); a gathered layer's state
+    (Mamba2's heads) is gathered whole. The step writes the new keys and
+    values into them in place (`models.layers.donated_caches`, the
+    reference's donated caches); each rank then writes its block back
+    into the DTensor, and the step returns the caches it was given;
+  * the logits are gathered over "model" (`Model.prefill` /
+    `decode_step`) and over the batch axes (with prefill's cache_len):
+    every rank returns the whole batch's, as the reference's replicated
+    outputs;
+  * the quantizer's abs-max of an activation spans every rank's rows, and
+    of a split operand "model" too (`core.collectives`), as in training.
 Every collective is one of `core.collectives`' counted ones. Without a
 mesh the steps are what they were.
 """
@@ -50,11 +56,11 @@ def make_prefill_step(model, mesh=None) -> Callable:
 
     def prefill_step(params, batch: dict, caches):
         rows, axes = _rows(model.cfg, mesh, batch)
-        whole, local = _local_inputs(params, caches, axes)
-        with _rows_ctx(axes):
+        keep = _cache_keep(model.cfg, mesh)
+        with _split_ctx(model.cfg, mesh, params, axes) as local:
             logits, new_caches, cache_len = model.prefill(
-                whole, {k: x[rows] for k, x in batch.items()}, local)
-        shd.keep_blocks(caches, new_caches, keep_dim=0)
+                local, {k: x[rows] for k, x in batch.items()}, _local_caches(caches, axes, keep))
+        shd.keep_blocks(caches, new_caches, keep_dim=keep)
         return _all_rows(logits, mesh, axes), caches, _all_rows(cache_len, mesh, axes)
     return prefill_step
 
@@ -79,10 +85,10 @@ def make_serve_step(model, *, seq_len: int, mesh=None) -> Callable:
 
     def serve_step(params, tokens, caches):
         rows, axes = _rows(model.cfg, mesh, {"tokens": tokens})
-        whole, local = _local_inputs(params, caches, axes)
-        with _rows_ctx(axes):
-            logits, new_caches = decode(whole, tokens[rows], local)
-        shd.keep_blocks(caches, new_caches, keep_dim=0)
+        keep = _cache_keep(model.cfg, mesh)
+        with _split_ctx(model.cfg, mesh, params, axes) as local:
+            logits, new_caches = decode(local, tokens[rows], _local_caches(caches, axes, keep))
+        shd.keep_blocks(caches, new_caches, keep_dim=keep)
         return _all_rows(logits, mesh, axes), caches
     return serve_step
 
@@ -99,22 +105,47 @@ def _rows(cfg, mesh, batch: dict) -> tuple[slice, tuple[str, ...]]:
     return slice(index * per, (index + 1) * per), axes
 
 
-def _rows_ctx(axes: tuple[str, ...]):
-    """The rows-split flag while the rows are split (a replicated batch
-    needs no global reduction: every rank holds every row)."""
-    return shd.activation_sharding_ctx() if axes else contextlib.nullcontext()
+@contextlib.contextmanager
+def _split_ctx(cfg, mesh, params, axes: tuple[str, ...]):
+    """The step's split (`sharding.activation_sharding_ctx`) with the rows
+    over `axes`; yields this rank's blocks of `params`."""
+    from repro_torch.runtime.train_lib import multi_pod
+    from repro_torch.models.layers import donated_caches
+    local, layouts = shd.local_blocks(params, mesh)
+    with shd.activation_sharding_ctx(mesh, cfg, multi_pod=multi_pod(mesh), rows=axes,
+                                     layouts=layouts), donated_caches():
+        yield local
 
 
-def _local_inputs(params, caches, axes: tuple[str, ...]):
-    """(the params whole, each cache with only its batch dim split, over
-    `axes` as the rows are, or ValueError)."""
-    from repro_torch.core.tree import tree_paths
+#: the cache leaves whose heads an attention whose kv heads split over
+#: "model" keeps split
+_HEAD_LEAVES = ("k", "v", "k_img", "v_img")
+
+
+def _cache_keep(cfg, mesh):
+    """(path, leaf) -> the dims of a cache leaf that stay this rank's
+    block: the rows, and the kv heads of an attention that splits them
+    over "model" (`models.layers.attn_splits`)."""
+    names = list(mesh.mesh_dim_names)
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    heads = (shd.model_parallel(cfg, mesh) and m > 1 and cfg.num_heads % m == 0
+             and cfg.num_kv_heads % m == 0)
+
+    def keep(path: str, _) -> tuple[int, ...]:
+        return (0, 2) if heads and path.split("/")[-1] in _HEAD_LEAVES else (0,)
+    return keep
+
+
+def _local_caches(caches, axes: tuple[str, ...], keep):
+    """Each cache with only its `keep` dims split (the batch dim over
+    `axes`, as the rows are, or ValueError)."""
+    from repro_torch.core.tree import tree_map_with_path, tree_paths
     for path, t in tree_paths(caches):
         split = shd.spec_axes(shd.spec_of(t)[0]) if shd.is_sharded(t) else ()
         if split != axes:
             raise ValueError(f"cache {path}: its batch dim is split over {split}, "
                              f"the rows over {axes}")
-    return shd.gather_tree(params), shd.gather_tree(caches, keep_dim=0)
+    return tree_map_with_path(lambda path, t: shd.gather(t, keep(path, t), copy=False), caches)
 
 
 def _all_rows(x: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor:

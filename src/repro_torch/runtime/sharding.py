@@ -1,6 +1,6 @@
 """Logical-axis sharding rules -> per-leaf specs and DTensor placements for
-params, optimizer state, caches and batches; the collectives of the
-data-parallel train step.
+params, optimizer state, caches and batches; the context that splits the
+meshed steps' compute.
 
 Counterpart of `repro.runtime.sharding`, with its rules copied as plain
 Python (DESIGN.md §6): batch over ("pod", "data"), parameters FSDP-sharded
@@ -25,18 +25,20 @@ optimizer state and the error-feedback residual keep the stacked shapes and
 take the spec as it is. A per-layer cache the same, from the reference's
 stacked cache.
 
-The step's collectives (`all_reduce`, `gather`) are counted in
-`core.collectives.COLLECTIVES` by kind: calls and bytes, where a gather's
-bytes are the whole tensor it assembles and an all-reduce's the tensor it
-reduces.
+The collectives (`all_reduce`, `gather`, and `core.collectives`' axis
+collectives) are counted in `core.collectives.COLLECTIVES` by kind: calls
+and bytes, where a gather's bytes are the whole tensor it assembles and an
+all-reduce's the tensor it reduces.
 
-`activation_sharding_ctx()` is what the reference plants its activation
-constraints under; here it marks the batch rows as split over every rank
-of the world (`core.collectives.rows_split`), so that the reductions that
-span rows stay global: the quantizer's abs-max of an activation and the
-loss's counts. The reference's `shard_hint` has no counterpart: a
-data-parallel step computes on whole activations of its rows, and no
-partitioner reads a constraint.
+`activation_sharding_ctx(mesh, cfg, multi_pod=...)` is what the reference
+plants its activation constraints under, and here it does the work of its
+`shard_hint`s: it tells the layers how the step is split
+(`core.collectives.MeshState`): the axes the batch rows split over (the
+rules' "batch" axes by default), the "model" axis the layers compute on
+their shard of (tensor parallel over heads, MLP and vocab, expert parallel
+over the experts; none under `prefer_dp`, whose rules fold "model" into
+batch and FSDP), and the layouts of the params' local blocks, which each
+layer gathers just before its forward (`core.collectives.fsdp_gather`).
 """
 from __future__ import annotations
 
@@ -45,12 +47,12 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.core.collectives import (
     COLLECTIVES,
     all_reduce,
     count_collective,
     reset_collectives,
-    rows_split,
 )
 
 Spec = tuple
@@ -296,6 +298,24 @@ def batch_shardings(batch, cfg, mesh, *, multi_pod: bool):
         ("batch",) + (None,) * (len(x.shape) - 1), tuple(x.shape), rules, mesh)))
 
 
+def batch_axes(cfg, mesh, rows: int, *, multi_pod: bool) -> tuple[str, ...]:
+    """The mesh axes a train step's batch of `rows` rows splits over: the
+    rules' "batch" axes, and "model" after them where no layer splits its
+    heads over it: no tensor-parallel rule (`model_parallel`), or query
+    heads that do not divide it (qwen2-0.5b's 14 on 16), whose attention
+    every rank of "model" would run whole on the same rows. An axis the
+    rows do not divide drops out with those after it; where "model" drops
+    out so, a config with a rule keeps its tensor parallelism, the
+    attention whole on every rank (the reference's divisibility
+    fallback)."""
+    rules = logical_rules(cfg, multi_pod)
+    sizes = axis_sizes(mesh)
+    split_heads = model_parallel(cfg, mesh) and cfg.num_heads % sizes["model"] == 0
+    if "model" in sizes and "model" not in rules["batch"] and not split_heads:
+        rules = {**rules, "batch": rules["batch"] + ("model",)}
+    return spec_axes(_resolve(("batch",), (rows,), rules, mesh)[0])
+
+
 def scalar_sharding(mesh) -> Sharding:
     return Sharding(mesh, ())
 
@@ -339,20 +359,24 @@ def is_sharded(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def gather(t, keep_dim: int | None = None) -> torch.Tensor:
+def gather(t, keep_dim: int | tuple[int, ...] | None = None, *,
+           copy: bool = True) -> torch.Tensor:
     """The whole tensor of a DTensor: an all-gather over each mesh dim of
-    more than one rank that shards it, innermost first; with `keep_dim`,
-    not over the mesh dims that shard that tensor dim (it stays this
-    rank's block). Every rank of the mesh calls it, in the same order. A
-    plain tensor comes back as it is."""
+    more than one rank that shards it, innermost first; with `keep_dim`
+    (a dim or a tuple of dims), not over the mesh dims that shard those
+    tensor dims (they stay this rank's block). Every rank of the mesh calls
+    it, in the same order. A plain tensor comes back as it is; a DTensor
+    with nothing to gather as a copy of its block (its block itself
+    without `copy`)."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
     if not is_sharded(t):
         return t
     mesh, pl = t.device_mesh, t.placements
+    keep = _dims(keep_dim)
     local = out = t.to_local()
     for i in reversed(range(len(pl))):
-        if not isinstance(pl[i], Shard) or mesh.size(i) == 1 or pl[i].dim == keep_dim:
+        if not isinstance(pl[i], Shard) or mesh.size(i) == 1 or pl[i].dim in keep:
             continue
         n, d = mesh.size(i), pl[i].dim
         src = out.movedim(d, 0).contiguous()
@@ -361,74 +385,110 @@ def gather(t, keep_dim: int | None = None) -> torch.Tensor:
         dist.all_gather_into_tensor(buf, src, group=mesh.get_group(i))
         count_collective("all_gather", buf)
         out = buf.movedim(0, d)
-    return out.clone() if out is local else out
+    return out.clone() if out is local and copy else out
 
 
-def gather_tree(tree, keep_dim: int | None = None):
+def _dims(keep_dim) -> tuple[int, ...]:
+    return () if keep_dim is None else (keep_dim,) if isinstance(keep_dim, int) else keep_dim
+
+
+def gather_tree(tree, keep_dim: int | tuple[int, ...] | None = None):
     """`gather` of every leaf of `tree` (a plain leaf as it is)."""
     from repro_torch.core.tree import tree_map_with_path
     return tree_map_with_path(lambda _, t: gather(t, keep_dim), tree)
 
 
-def block_of(full: torch.Tensor, t, keep_dim: int | None = None) -> torch.Tensor:
+def block_of(full: torch.Tensor, t, keep_dim: int | tuple[int, ...] | None = None) -> torch.Tensor:
     """This rank's block of `full`, as the leaf `t` holds it (a plain leaf:
     all of it); with `keep_dim`, `full` already holds this rank's block of
     that dim (as `gather(t, keep_dim)` leaves it)."""
     from torch.distributed.tensor import Replicate, Shard
     if not is_sharded(t):
         return full
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == keep_dim else p
+    keep = _dims(keep_dim)
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in keep else p
           for p in t.placements]
     return shard_of(full, t.device_mesh, pl)
 
 
 @torch.no_grad()
-def keep_blocks(tree, full, keep_dim: int | None = None):
+def keep_blocks(tree, full, keep_dim=None):
     """Write this rank's blocks (`block_of`) of the leaves of `full` into
     the leaves of `tree`, a tree of the same structure: a DTensor's local
-    block, a plain leaf whole. -> `tree`."""
+    block, a plain leaf whole; `keep_dim` a dim, a tuple of dims, or a
+    function of (path, leaf) giving either. -> `tree`."""
     from repro_torch.core.tree import tree_map_with_path, tree_paths
     wholes = dict(tree_paths(full))
 
     def keep(path: str, t) -> None:
         local = t.to_local() if is_sharded(t) else t
-        local.copy_(block_of(wholes[path], t, keep_dim))
+        dims = keep_dim(path, t) if callable(keep_dim) else keep_dim
+        local.copy_(block_of(wholes[path], t, dims))
     tree_map_with_path(keep, tree)
     return tree
 
 
-#: elements of a grad bucket (256 MiB of float32): one all-reduce each
-BUCKET_ELEMENTS = 1 << 26
+# ------------------------------------------------------- local blocks ------
+def layout_of(t, axes: dict) -> tuple:
+    """((Axis, tensor dim), ...) of the mesh dims that shard the DTensor
+    `t`, in mesh order (empty for a plain leaf): its `core.collectives`
+    layout."""
+    from torch.distributed.tensor import Shard
+    if not is_sharded(t):
+        return ()
+    return tuple((axes[name], p.dim) for name, p in zip(t.device_mesh.mesh_dim_names,
+                                                        t.placements) if isinstance(p, Shard))
 
 
-def all_reduce_coalesced(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
-    """The sums over `group` of `tensors` (float32), in buckets of at most
-    BUCKET_ELEMENTS elements (a larger tensor alone), each one all-reduce
-    of a flat copy."""
-    out: list[torch.Tensor] = [None] * len(tensors)
-    i = 0
-    while i < len(tensors):
-        j, n = i, 0
-        while j < len(tensors) and (j == i or n + tensors[j].numel() <= BUCKET_ELEMENTS):
-            n += tensors[j].numel()
-            j += 1
-        flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors[i:j]])
-        all_reduce(flat, "sum", group)
-        for k, piece in zip(range(i, j), flat.split([t.numel() for t in tensors[i:j]])):
-            out[k] = piece.view(tensors[k].shape)
-        i = j
-    return out
+def local_blocks(tree, mesh, *, grad: bool = False):
+    """(the tree of this rank's blocks -- a DTensor's local tensor, a plain
+    leaf as it is, each an alias that shares its storage and, with `grad`,
+    requires grad --, their layouts by id) for `activation_sharding_ctx`."""
+    from repro_torch.core.tree import tree_map_with_path
+    axes = coll.mesh_axes(mesh)
+    layouts = {}
+
+    def one(_, t):
+        local = (t.to_local() if is_sharded(t) else t).detach()
+        if grad:
+            local.requires_grad_(True)
+        layouts[id(local)] = layout_of(t, axes)
+        return local
+    return tree_map_with_path(one, tree), layouts
 
 
 # ------------------------------------------------ activation context --------
-def activation_sharding_ctx():
-    """While active, the batch rows are split over every rank of the world
-    (the mesh holds them all): `core.collectives.rows_split`."""
-    return rows_split()
+def model_parallel(cfg, mesh) -> bool:
+    """Whether layers compute on their "model" shard on `mesh`, decided
+    from the config's structure: a "model" axis that is not folded into
+    batch and FSDP (`prefer_dp`), and a layer kind with a tensor-parallel
+    rule (attention, MoE, cross-attention; not zamba2's Mamba2 stack). A
+    step whose rows split over "model" (`batch_axes`) computes on no
+    "model" shard all the same (`activation_sharding_ctx`)."""
+    from repro_torch.models.transformer import ATTN_KINDS
+    return ("model" in mesh.mesh_dim_names and not cfg.prefer_dp
+            and any(kind in ATTN_KINDS for kind in cfg.block_kinds()))
 
 
-__all__ = ["COLLECTIVES", "Sharding", "activation_sharding_ctx", "all_reduce",
-           "all_reduce_coalesced", "axis_sizes", "batch_shardings", "block_of", "cache_shardings",
-           "distribute", "distribute_tree", "ef_shardings", "gather", "gather_tree", "is_sharded",
-           "keep_blocks", "logical_rules", "mesh_device", "opt_shardings", "param_shardings",
-           "placements", "reset_collectives", "scalar_sharding", "shard_of", "spec_of"]
+def activation_sharding_ctx(mesh, cfg, *, multi_pod: bool = False,
+                            rows: tuple[str, ...] | None = None, layouts: dict | None = None):
+    """While active, the step is split on `mesh` (module docstring): the
+    rows over `rows` (the rules' "batch" axes for None), tensor- and
+    expert-parallel layers over "model" (`model_parallel`, where the rows
+    do not split over it), and the
+    params' local blocks of `layouts` (`local_blocks`) gathered a layer at
+    a time."""
+    axes = coll.mesh_axes(mesh)
+    if rows is None:
+        rows = logical_rules(cfg, multi_pod)["batch"]
+    model = axes["model"] if model_parallel(cfg, mesh) and "model" not in rows else None
+    return coll.mesh_state(coll.MeshState(rows=tuple(axes[a] for a in rows), model=model,
+                                          layouts=dict(layouts or {})))
+
+
+__all__ = ["COLLECTIVES", "Sharding", "activation_sharding_ctx", "all_reduce", "axis_sizes",
+           "batch_axes", "batch_shardings", "block_of", "cache_shardings", "distribute",
+           "distribute_tree", "ef_shardings", "gather", "gather_tree", "is_sharded",
+           "keep_blocks", "layout_of", "local_blocks", "logical_rules", "mesh_device",
+           "model_parallel", "opt_shardings", "param_shardings", "placements",
+           "reset_collectives", "scalar_sharding", "shard_of", "spec_of"]

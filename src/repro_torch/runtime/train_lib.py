@@ -22,19 +22,30 @@ With a `mesh` (a named `DeviceMesh` over the process group's ranks,
 `repro_torch.launch.mesh.make_host_mesh`) the state at rest is sharded by
 the reference's rules (`runtime.elastic.state_shardings`: params,
 optimizer state and residual are DTensors holding this rank's block; the
-step and the optimizer's count stay whole), and the step is data-parallel
-over every rank of the world. It gathers the params whole, takes this
-rank's rows of the global batch (of each global microbatch), and keeps
-every reduction that spans rows global, as the reference's GSPMD step
-does: the quantizer's abs-max of each activation (`core.quant`), the
-loss's counts (`Model.loss_fn`), the MoE chunks (each rank's tokens must
-be whole chunks of the global stream, or ValueError). Then the grads are
-summed over the ranks (`sharding.all_reduce_coalesced`), and every rank
-holds the full, reduced grads: grad_compress, the grad norm and Adafactor
-run on them as on one device (each rank then keeping its block), AdamW on
-each rank's block (element-wise, so exact). The metrics are global. The
-"model" axis shards state at rest only: no tensor-parallel compute and no
-per-layer gather (ROADMAP).
+step and the optimizer's count stay whole), and the step computes on the
+reference's shards (`runtime.sharding.activation_sharding_ctx`):
+  * the rows split over the rules' batch axes ("data", or ("pod",
+    "data"), and "model" too where no layer splits its heads over it:
+    zamba2's Mamba2 stack, qwen2-0.5b's 14 heads on 16; an axis a
+    microbatch's rows do not divide drops out), and the ranks along the other axes share their rows
+    (`sharding.batch_axes`, `rank_rows`). Every reduction that spans rows
+    stays global over them, as in the reference's GSPMD step: the
+    quantizer's abs-max of each activation (`core.quant`), the loss's
+    counts (`Model.loss_fn`), the MoE chunks (a rank's tokens must be
+    whole chunks of the global stream, or ValueError);
+  * the params stay sharded: each layer gathers its FSDP blocks just
+    before its forward (`models.transformer`) and computes on its "model"
+    shard where the rules split it in whole heads, experts or vocab
+    columns (`models.layers`, `models.moe`, `models.model`);
+  * each param's grad comes out of its gather's backward as this rank's
+    block of the global grad: reduce-scattered over the FSDP axes and
+    all-reduced over the row axes the param rests whole on. No grad is
+    all-reduced whole.
+AdamW then runs on each rank's blocks (element-wise, so exact), and the
+grad norm sums each block's squares over the axes that shard it.
+grad_compress and Adafactor, which couple a whole stacked leaf, read the
+grads whole (all-gathered from the blocks), as on one device, and each
+rank keeps its blocks of what they give. The metrics are global.
 """
 from __future__ import annotations
 
@@ -43,6 +54,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import collectives as coll
+from repro_torch.core.collectives import all_reduce_rows
 from repro_torch.core.quant import f32
 from repro_torch.core.tree import tree_map_with_path
 from repro_torch.optim import cosine_schedule, get_optimizer, param_groups
@@ -110,37 +123,40 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh holds {mesh.size()} of the world's "
                              f"{dist.get_world_size()} ranks")
-        world, rank = rank_rows(mesh, mesh.mesh_dim_names)
+    whole_grads = mesh is not None and (cfg.grad_compress or cfg.optimizer != "adamw")
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         k = cfg.microbatches
+        rows = len(next(iter(batch.values())))
         if mesh is None:
-            n = len(next(iter(batch.values()))) // k
-            per, first, params = n, 0, state.params
+            n = rows // k
+            per, first, params, ctx = n, 0, state.params, contextlib.nullcontext()
         else:
-            n, per = row_split(cfg, batch, world)
-            first = rank * per
-            params = tree_map_with_path(
-                lambda _, t: shd.gather(t).detach().requires_grad_(True), state.params)
+            axes = shd.batch_axes(cfg, mesh, rows // k, multi_pod=multi_pod(mesh))
+            groups_n, index = rank_rows(mesh, axes)
+            n, per = row_split(cfg, batch, groups_n)
+            first = index * per
+            params, layouts = shd.local_blocks(state.params, mesh, grad=True)
+            ctx = shd.activation_sharding_ctx(mesh, cfg, multi_pod=multi_pod(mesh), rows=axes,
+                                              layouts=layouts)
         groups = param_groups(params, cfg)
         leaves = [t for group in groups for t in group.params]
         acc = loss_sum = None
         if k > 1:                       # the reference's order: zeros, + each microbatch
             acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in leaves]
             loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-        with contextlib.nullcontext() if mesh is None else shd.activation_sharding_ctx():
+        with ctx:
             for j in range(k):
                 lo = j * n + first
                 loss, metrics, grads = grads_of(
                     model, params, {key: x[lo:lo + per] for key, x in batch.items()}, leaves)
                 acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
                 loss_sum = loss if loss_sum is None else loss_sum + loss
-        if mesh is not None:            # each rank's shares -> the global sums
-            names = sorted(metrics)
-            sums = shd.all_reduce(torch.stack([loss_sum, *(metrics[m] for m in names)])
-                                  .to(torch.float32))
-            loss_sum, metrics = sums[0], {m: sums[1 + i] for i, m in enumerate(names)}
-            acc = shd.all_reduce_coalesced(acc)
+            if mesh is not None:        # each row block's shares -> the global sums
+                names = sorted(metrics)
+                sums = all_reduce_rows(torch.stack([loss_sum, *(metrics[m] for m in names)])
+                                       .to(torch.float32))
+                loss_sum, metrics = sums[0], {m: sums[1 + i] for i, m in enumerate(names)}
         loss = loss_sum
         if k > 1:
             kf = f32(k, loss_sum)
@@ -150,6 +166,10 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
         for group in groups:
             grads.append(acc[i:i + len(group.params)])
             i += len(group.params)
+        at_rest = groups if mesh is None else param_groups(state.params, cfg)
+        if whole_grads:                 # the blocks -> the whole grads, on every rank
+            grads = [[_whole(g, t) for g, t in zip(gs, group.params)]
+                     for gs, group in zip(grads, at_rest)]
 
         new_ef = state.ef
         if cfg.grad_compress:
@@ -158,17 +178,23 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
 
         lr = lr_fn(state.step)
         if mesh is None or cfg.optimizer == "adamw":    # in place: AdamW is element-wise
-            at_rest = groups if mesh is None else param_groups(state.params, cfg)
-            optimizer.update([[shd.block_of(g, t) for g, t in zip(gs, group.params)]
-                              for gs, group in zip(grads, at_rest)],
+            blocks = grads if not whole_grads else [
+                [shd.block_of(g, t) for g, t in zip(gs, group.params)]
+                for gs, group in zip(grads, at_rest)]
+            optimizer.update(blocks,
                              {"count": state.opt["count"], "state": _local(state.opt["state"])},
                              [Group(g.key, _local(g.params), g.stacked) for g in at_rest], lr)
         else:                           # couples the stack: on the whole, then kept
+            whole = shd.gather_tree(state.params)
             opt = {"count": state.opt["count"], "state": shd.gather_tree(state.opt["state"])}
-            optimizer.update(grads, opt, groups, lr)
-            shd.keep_blocks(state.params, params)
+            optimizer.update(grads, opt, param_groups(whole, cfg), lr)
+            shd.keep_blocks(state.params, whole)
             shd.keep_blocks(state.opt["state"], opt["state"])
-        gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for gs in grads for g in gs))
+        if mesh is None or whole_grads:
+            gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                                   for gs in grads for g in gs))
+        else:
+            gnorm = _block_norm(grads, at_rest, mesh)
         out_metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm, **metrics}
         return TrainState(state.step + 1, state.params, state.opt, new_ef), out_metrics
 
@@ -209,6 +235,33 @@ def rank_rows(mesh, axes) -> tuple[int, int]:
         size = mesh.size(names.index(ax))
         groups, index = groups * size, index * size + coord[names.index(ax)]
     return groups, index
+
+
+def _whole(g: torch.Tensor, t) -> torch.Tensor:
+    """The whole grad of the param `t` at rest from this rank's block `g`."""
+    if not shd.is_sharded(t):
+        return g
+    from torch.distributed.tensor import DTensor
+    return shd.gather(DTensor.from_local(g, t.device_mesh, t.placements, run_check=False))
+
+
+def _block_norm(grads, at_rest, mesh) -> torch.Tensor:
+    """The global norm of the grads from each rank's blocks: the sum of
+    squares of the blocks of the leaves sharded over the same axes, summed
+    over those axes (a leaf whole on an axis counted once)."""
+    axes = coll.mesh_axes(mesh)
+    sums: dict = {}
+    for gs, group in zip(grads, at_rest):
+        for g, t in zip(gs, group.params):
+            names = tuple(a.name for a, _ in shd.layout_of(t, axes) if a.size > 1)
+            sq = torch.sum(g.to(torch.float32) ** 2)
+            sums[names] = sq if names not in sums else sums[names] + sq
+    total = None
+    for names, sq in sums.items():
+        for name in dict.fromkeys(names):
+            coll.all_reduce(sq, "sum", axes[name])
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def _local(tree):

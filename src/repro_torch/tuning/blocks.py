@@ -111,12 +111,9 @@ def menu_tile(route: str, block_rows: int | None, block_cols: int | None,
     """The card's tile for explicit grid fields on `route`: (rows, cols) of
     the menu, unset fields taken from the route's first tile with the same
     given field. Raises ValueError for a tile off the menu (as the
-    reference fails loud on an illegal explicit `block_cols`) and
-    NotImplementedError for `batch_fold=True`, which no kernel runs."""
-    if batch_fold:
-        raise NotImplementedError(
-            "batch_fold=True has no Hopper kernel: the kernels run N "
-            "independent images (ROADMAP Queue 1 item 5)")
+    reference fails loud on an illegal explicit `block_cols`). The tile
+    does not depend on `batch_fold`: a fold runs the same pass on the tall
+    image (`filters.conv`)."""
     menu = TILE_MENU[route]
     for rows, cols in menu:
         if block_rows in (None, rows) and block_cols in (None, cols):
@@ -149,8 +146,7 @@ def default_blocks(kind: str, n: int, h: int, w: int, kh: int, kw: int, *,
     row axis, the folded height cut into the fewest row bands under
     `MAX_BLOCK_ROWS`, columns tiled at 256 past 512-wide images.
     'cuda': the first menu tile of the pass's route (`kernel_route`) and no
-    fold; a caller's explicit `batch_fold` is carried so that `menu_tile`
-    refuses it."""
+    fold unless the caller asks for one."""
     if backend == "cuda":
         rows, cols = TILE_MENU[route_of(kind, kh, kw)][0]
         return BlockConfig(rows, cols, bool(batch_fold))

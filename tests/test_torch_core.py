@@ -203,3 +203,80 @@ def test_filter_tables_and_bound_every_bank_filter(method, nbits):
             assert got.dtype == want.dtype, name
             np.testing.assert_array_equal(got, want, err_msg=name)
             assert tkcm.tables_acc_bound(got) == jkcm.tables_acc_bound(want)
+
+
+# ------------------------------------------------ the oracle functions ------
+def _bytes_equal(got: torch.Tensor, want) -> None:
+    """Same dtype, same values: byte-equal."""
+    want = np.asarray(want)
+    assert got.numpy().dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+ORACLES = [
+    ("mitchell_corrected", jmitchell.mitchell_corrected, tmitchell.mitchell_corrected),
+    ("odma_exact_identity", jodma.odma_exact_identity, todma.odma_exact_identity),
+]
+
+
+@pytest.mark.parametrize("name,ref_fn,port_fn", ORACLES, ids=[o[0] for o in ORACLES])
+@pytest.mark.parametrize("nbits", [2, 8, 16])
+def test_oracle_products_are_byte_equal(name, ref_fn, port_fn, nbits):
+    """Every pair at 2 and 8 bits, the seeded 16-bit samples (products past
+    2**31): the same dtype (int32, odma's identity uint32 at 16 bits) and
+    values as the reference's."""
+    a, b = _pairs(nbits) if nbits < 16 else _samples16()
+    _bytes_equal(port_fn(torch.from_numpy(a), torch.from_numpy(b), nbits),
+                 ref_fn(jnp.asarray(a), jnp.asarray(b), nbits))
+
+
+def test_mitchell_corrected_is_the_exact_product():
+    a, b = _pairs(8)
+    got = tmitchell.mitchell_corrected(torch.from_numpy(a), torch.from_numpy(b), 8)
+    np.testing.assert_array_equal(got.numpy(), a * b)
+
+
+@pytest.mark.parametrize("nbits", [8, 16])
+def test_mitchell_residual_operands_are_byte_equal(nbits):
+    a, b = _pairs(nbits) if nbits < 16 else _samples16()
+    a = np.concatenate([a, [-5, 1 << 30, -(1 << 31)]]).astype(np.int32)
+    b = np.concatenate([b, [3, 3, 7]]).astype(np.int32)
+    got = tmitchell.mitchell_residual_operands(torch.from_numpy(a), torch.from_numpy(b))
+    for g, w in zip(got, jmitchell.mitchell_residual_operands(jnp.asarray(a), jnp.asarray(b))):
+        _bytes_equal(g, w)
+
+
+def test_mitchell_truncated_float_within_its_tolerance():
+    """R6: the float path against the reference's, elementwise within a few
+    float32 ulps (log2 / exp2 are the libraries' own), and within its
+    documented 11.1% of the exact product; exact at powers of two."""
+    rng = np.random.default_rng(5)
+    a = (rng.standard_normal(4096) * 10).astype(np.float32)
+    b = (rng.standard_normal(4096) * 10).astype(np.float32)
+    a[:4], b[:4] = [0.0, 2.0, -4.0, 0.5], [3.0, 8.0, 0.25, -16.0]
+    got = tmitchell.mitchell_truncated_float(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = np.asarray(jmitchell.mitchell_truncated_float(jnp.asarray(a), jnp.asarray(b)))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=4 * np.finfo(np.float32).eps, atol=0)
+    exact = a.astype(np.float64) * b
+    assert (np.abs(got - exact) <= 0.1112 * np.abs(exact) + 1e-30).all()
+    np.testing.assert_array_equal(got[:4], exact[:4].astype(np.float32))
+
+
+def test_bitops_oracles_are_byte_equal():
+    x = np.concatenate([np.arange(1 << 16), [1 << 20, (1 << 31) - 1, -5, -(1 << 31)]]
+                       ).astype(np.int32)
+    k = np.array(jbitops.leading_one_position(jnp.asarray(x)))
+    _bytes_equal(tbitops.mantissa(torch.from_numpy(x), torch.from_numpy(k)),
+                 jbitops.mantissa(jnp.asarray(x), jnp.asarray(k)))
+    ks = np.arange(0, 32, dtype=np.int32)
+    _bytes_equal(tbitops.decode_power(torch.from_numpy(ks)), jbitops.decode_power(jnp.asarray(ks)))
+    for nbits in (8, 16, 32):
+        _bytes_equal(tbitops.popcount(torch.from_numpy(x), nbits),
+                     jbitops.popcount(jnp.asarray(x), nbits))
+
+
+@pytest.mark.parametrize("variant", ["kom4", "kom3"])
+def test_op_counts_equal_the_reference(variant):
+    for nbits in (2, 4, 8, 16):
+        assert trefmlm.op_counts(nbits, variant) == jrefmlm.op_counts(nbits, variant)

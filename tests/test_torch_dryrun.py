@@ -8,8 +8,11 @@ test, or in a subprocess, so no worker keeps a group).
     meshes: `ok=2 fail=0`, exit 0, records with the reference's keys
     (`repro.launch.dryrun.run_cell`'s, its report's and its memory
     analysis's);
-  * train_4k on (2, 16, 16): 256 rows over 512 ranks, an error record
-    with `row_split`'s reason, and exit 1;
+  * a cell that still fails: deepseek-v3-671b decode_32k on (16, 16),
+    whose 8 rows a rank are not whole chunks of the 128-token MoE chunk
+    (train_4k on (2, 16, 16), which this test named when every rank took
+    its own rows, now splits its rows over ("pod", "data") only and
+    plans), an error record with `row_split`'s reason, and exit 1;
   * each rank's train-state bytes at rest on both production meshes, for
     every arch at its full config, from the specs alone (no trace): equal
     to the bytes of the reference's specs over the reference's abstract
@@ -89,14 +92,15 @@ def test_cli_decode_32k_both_meshes(tmp_path):
 
 
 def test_train_4k_on_the_multi_pod_mesh_is_an_error_record(tmp_path, monkeypatch, capsys):
-    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "qwen2-0.5b", "--shape", "train_4k",
-                                      "--mesh", "multi", "--out", str(tmp_path)])
+    monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "deepseek-v3-671b",
+                                      "--shape", "decode_32k", "--mesh", "single",
+                                      "--out", str(tmp_path)])
     with pytest.raises(SystemExit) as exit_:
         dryrun.main()
     assert exit_.value.code == 1
     assert "ok=0 fail=1" in capsys.readouterr().out
-    rec = json.load(open(tmp_path / "qwen2-0.5b__train_4k__pod2x16x16.json"))
-    assert rec["status"] == "error" and "does not split over 512 ranks" in rec["error"]
+    rec = json.load(open(tmp_path / "deepseek-v3-671b__decode_32k__pod16x16.json"))
+    assert rec["status"] == "error" and "MoE chunks" in rec["error"]
 
 
 class FakeMesh:

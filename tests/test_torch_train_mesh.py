@@ -139,7 +139,7 @@ def mesh_step(state_file: str, out_file: str, arch: str, changes: dict,
     state = shard_state(torch.load(state_file, weights_only=False), cfg, mesh)
     if local_max:
         import repro_torch.core.quant as quant
-        quant.rows_max = lambda x: x.max()
+        quant.operand_max = lambda x: x.max()
     shd.reset_collectives()
     new, metrics = make_train_step(model, mesh=mesh)(state, lm_batch(cfg, **BATCH))
     dump(new, metrics, out_file)
@@ -152,13 +152,13 @@ def absmax_probe(state_file: str, out_file: str, arch: str, changes: dict) -> No
     from repro_torch.core.collectives import batch_rows
     from repro_torch.core.quant import quantize_magnitude
     cfg = port_config(arch, changes)
-    make_host_mesh()
+    mesh = make_host_mesh()
     state = torch.load(state_file, weights_only=False)
     n, per = row_split(cfg, lm_batch(cfg, **BATCH), dist.get_world_size())
     lo = dist.get_rank() * per
     tokens = torch.as_tensor(lm_batch(cfg, **BATCH)["tokens"][lo:lo + per], dtype=torch.long)
     x = state.params["emb"].detach()[tokens].reshape(-1, cfg.d_model)
-    with shd.activation_sharding_ctx():
+    with shd.activation_sharding_ctx(mesh, cfg, rows=("data",)):
         with batch_rows():
             glob = quantize_magnitude(x, 8)
     local = quantize_magnitude(x, 8)
@@ -283,10 +283,42 @@ def test_mesh_step_matches_the_single_device_step(tmp_path, shape, method):
     check_both(got, ref, path, "qwen2-0.5b", changes)
     coll = got["collectives"]
     dense = 7 * cfg.num_layers if method != "exact" else 0
-    # the quantizer: a max a quantized dense forward, a (cotangent, ties) sum backward
-    assert coll.get("all_reduce_max", 0) == dense
-    # + the label count, the metrics, the grads in one bucket
-    assert coll["all_reduce_sum"] == dense + 3
+    data, model = shape
+    rows = data > 1                 # the rows split over "data" (the batch axis)
+    # a step's gathers of a param over "data", each reduce-scattered back:
+    # 7 a layer (wq, wk, wv, wo, wi, wg, the MLP's wo) and the tied table
+    # twice (the embedding, the head); of a param whole on "data", each
+    # all-reduced back: 5 a layer (2 norms, the q / k / v biases) and the
+    # final norm
+    fsdp, whole = 7 * cfg.num_layers + 2, 5 * cfg.num_layers + 1
+    assert coll.get("reduce_scatter", 0) == fsdp * rows
+    if model == 1:
+        # the quantizer: a max a quantized dense forward, a (cotangent, ties)
+        # sum backward; + the label count, the metrics, the grad norm
+        assert coll.get("all_reduce_max", 0) == dense * rows
+        assert coll.get("all_reduce_sum", 0) == (dense + 3 + whole) * rows
+    else:
+        layers, quantized = cfg.num_layers, method != "exact"
+        kv = cfg.num_kv_heads % model == 0      # on (2, 4) wk / wv are gathered
+        # a layer's quantized denses by their split: column-parallel (wq,
+        # wk, wv, wi, wg), row-parallel (the two wo), whole (wk, wv gathered)
+        col, row, whole_w = (5, 2, 0) if kv else (3, 2, 2)
+        # forward maxes: an activation over "data" (and "model" where it is
+        # split on K), a weight block over "model"; + the vocab-parallel
+        # logsumexp's
+        maxes = quantized * layers * (col * (rows + 1) + row * (rows + 2) + whole_w * rows) + 1
+        # their backward sums: (cotangent, ties) over the same axes, or the
+        # cotangent over "data" and the ties over the max's axes
+        ties = quantized * layers * (col * (rows + 1) + row * (2 * rows + 2) + whole_w * rows)
+        # forward: the lookup's partial embeddings, a layer's two row-parallel
+        # sums, the logsumexp's and the label logit's; backward: copy_to_model's
+        # (a layer's attention and MLP inputs, its k and v where gathered, the
+        # head's input)
+        tp = 1 + 2 * layers + 2 + layers * (2 + 2 * (not kv)) + 1
+        # + the label count and the metrics over "data", the grad norm over
+        # "data" and "model" (the FSDP / TP blocks) and "model" (the biases)
+        assert coll["all_reduce_max"] == maxes
+        assert coll["all_reduce_sum"] == ties + tp + whole * rows + 2 * rows + rows + 2
     sharded = shape[0] * shape[1] > 1
     assert ("all_gather" in coll) == sharded
 

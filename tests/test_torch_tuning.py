@@ -112,8 +112,8 @@ class TestHeuristic:
                 menu_tile("persistent", rows, cols, False)
         with pytest.raises(ValueError, match="tiled"):
             menu_tile("tiled", 32, 64, False)
-        with pytest.raises(NotImplementedError, match="batch_fold"):
-            menu_tile("persistent", 32, 64, True)
+        # a fold runs the same pass on the tall image: the tile stands
+        assert menu_tile("persistent", 32, 64, True) == (32, 64)
 
     def test_clamp_tile_degrades_to_the_menu(self):
         assert clamp_tile("persistent", 1040, None) == (32, 64)
