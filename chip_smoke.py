@@ -184,7 +184,12 @@ Phases, each fatal on failure:
                phase's unmeshed numbers. With two cards or more, 4 (or 2)
                NCCL ranks of their own processes take one step on an
                (n, 1) mesh against the unmeshed step; on one card a line
-               says it was not run;
+               says it was not run. Two gloo ranks sharing the one card
+               (where a probe says they can) run (1, 2) tensor-parallel
+               prefill + 3 serve steps of Qwen2-0.5B and zamba2-1.2b (its
+               Mamba2 heads split) at 2 layers, full width, mitchell:
+               logits byte-equal to the unmeshed steps' and rank 0's
+               mitchell_matmul calls (56 / 16) equal to plain, asserted;
  18. dryrun -- the port's dry-run and roofline on the card: `python -m
                repro_torch.launch.dryrun` for Qwen2-0.5B decode_32k on both
                production meshes and train_4k on (16, 16), fake CUDA
@@ -2518,33 +2523,21 @@ def shared_card_probe(rank: int, device: torch.device) -> str | None:
     return None
 
 
-def tp_shared_rank(rank: int, world: int, rdzv: str, out: str) -> None:
-    """(a spawned rank) two gloo ranks on the one card: where they can share
-    it (`shared_card_probe`), TRAIN_ARCH at TRAIN_CUT_LAYERS layers, full
-    width, mitchell, through the meshed prefill and DRYRUN_DECODE_STEPS
-    serve steps on a (1, 2) mesh (tensor parallel over "model"), every
-    `mitchell_matmul` call held against its plain version; rank 0 also
-    runs the unmeshed steps and writes both. A fault past the probe fails
-    the rank, and so the phase."""
-    from datetime import timedelta
+#: the shared-card (1, 2) step's cases: (arch, layers) at full width under
+#: mitchell, each rank's share of the unmeshed oracle, and the quantized
+#: denses a layer a forward (the dense Qwen2 layer's 7, a Mamba2 layer's
+#: in_proj and out_proj, its 64 SSM heads split over "model")
+TP_SHARED_CASES = {"dense": (TRAIN_ARCH, TRAIN_CUT_LAYERS, 0, 7),
+                   "hybrid": ("zamba2-1.2b", 2, 1, 2)}
 
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
+def tp_shared_case(cfg, mesh, device: torch.device, check: bool, oracle: bool) -> dict:
+    """`cfg` through the meshed prefill and DRYRUN_DECODE_STEPS serve steps
+    on `mesh`, with `check` every `mitchell_matmul` call held against its
+    plain version; with `oracle`, the unmeshed steps too (deferred: a
+    function that runs them and compares)."""
     from repro_torch.models import build_model
     from repro_torch.runtime import sharding as shd
-    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank, world_size=world,
-                            timeout=timedelta(seconds=120))
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    error = shared_card_probe(rank, device)
-    if error is not None:
-        if rank == 0:
-            Path(out).write_text(json.dumps({"shared": False, "error": error}))
-        dist.destroy_process_group()
-        return
-    mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
-    cfg = train_cut("mitchell")
     model = build_model(cfg, device)
     params = model.init(torch.Generator(device).manual_seed(0))
     batch, prompt_len, _ = LM_TRAFFIC
@@ -2556,25 +2549,68 @@ def tp_shared_rank(rank: int, world: int, rdzv: str, out: str) -> None:
     c = shd.distribute_tree(caches, shd.cache_shardings(caches, cfg, mesh, multi_pod=False))
     stats = {"calls": 0, "max_err": 0}
     shd.reset_collectives()
-    with checked_mitchell(stats):
+    t0 = time.perf_counter()
+    # rank 0's calls are the ones held against plain: rank 1 leaves the card
+    # to them instead of checking calls nobody reads
+    with checked_mitchell(stats) if check else contextlib.nullcontext():
         got = serve_mesh_generate(model, p, c, prompt, mesh)
     torch.cuda.synchronize()
-    result = {"shared": True, "stats": stats, "collectives": dict(shd.COLLECTIVES)}
-    if rank == 0:
+    result = {"stats": stats, "collectives": dict(shd.COLLECTIVES),
+              "mesh_s": time.perf_counter() - t0}
+    del p, c
+
+    def compare() -> dict:
+        t1 = time.perf_counter()
         want = serve_mesh_generate(model, params, model.init_cache(batch, s_max), prompt)
-        result["max_abs"] = max(float((g - w).abs().max())
-                                for g, w in zip(got["logits"], want["logits"]))
-        result["equal"] = all(torch.equal(g, w) for g, w in zip(got["logits"], want["logits"]))
-        Path(out).write_text(json.dumps(result))
+        torch.cuda.synchronize()
+        return {**result, "oracle_s": time.perf_counter() - t1,
+                "max_abs": max(float((g - w).abs().max())
+                               for g, w in zip(got["logits"], want["logits"])),
+                "equal": all(torch.equal(g, w) for g, w in zip(got["logits"], want["logits"]))}
+    return compare if oracle else result
+
+
+def tp_shared_rank(rank: int, world: int, rdzv: str, out: str) -> None:
+    """(a spawned rank) two gloo ranks on the one card: where they can share
+    it (`shared_card_probe`), each TP_SHARED_CASES case at full width,
+    mitchell, through the meshed prefill and DRYRUN_DECODE_STEPS serve
+    steps on a (1, 2) mesh (tensor parallel over "model"), every
+    `mitchell_matmul` call held against its plain version; then each rank
+    runs the unmeshed steps of its cases (the two ranks in parallel) and
+    writes `out`.<rank>. A fault past the probe fails the rank, and so
+    the phase."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    error = shared_card_probe(rank, device)
+    if error is not None:
+        if rank == 0:
+            Path(out).write_text(json.dumps({"shared": False, "error": error}))
+        dist.destroy_process_group()
+        return
+    mesh = init_device_mesh("cuda", (1, world), mesh_dim_names=("data", "model"))
+    runs = {}
+    for name, (arch, layers, oracle_rank, _) in TP_SHARED_CASES.items():
+        cfg = dataclasses.replace(lm_config(arch), num_layers=layers, matmul_method="mitchell")
+        runs[name] = tp_shared_case(cfg, mesh, device, rank == 0, oracle_rank == rank)
     dist.destroy_process_group()
+    results = {name: run() if callable(run) else run for name, run in runs.items()}
+    Path(f"{out}.{rank}").write_text(json.dumps({"shared": True, "cases": results}))
 
 
 def phase_tp_shared_card(max_err: dict) -> None:
     """Whether two gloo ranks can share the one card with CUDA tensors
     (`shared_card_probe`); where they can, the (1, 2) tensor-parallel
-    serve step of `tp_shared_rank`: its logits byte-equal to the unmeshed
-    steps', rank 0's mitchell_matmul calls (7 a layer a forward: the
-    prefill and each serve step) equal to plain, asserted."""
+    serve steps of `tp_shared_rank`, each case's logits byte-equal to the
+    unmeshed steps', rank 0's mitchell_matmul calls (the case's denses a
+    layer a forward: the prefill and each serve step) equal to plain,
+    asserted."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2582,23 +2618,31 @@ def phase_tp_shared_card(max_err: dict) -> None:
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "tp.json")
         mp.spawn(tp_shared_rank, args=(2, os.path.join(d, "rdzv"), out), nprocs=2)
-        got = json.loads(Path(out).read_text())
+        if os.path.exists(out):
+            got = json.loads(Path(out).read_text())
+        else:
+            ranks = [json.loads(Path(f"{out}.{r}").read_text()) for r in range(2)]
+            got = {"shared": True, "ranks": ranks}
     if not got["shared"]:
         log(f"[mesh] two gloo ranks on the one card with CUDA tensors: not possible here "
-            f"({got['error']}); the (1, 2) tensor-parallel serve step not run "
+            f"({got['error']}); the (1, 2) tensor-parallel serve steps not run "
             f"({time.perf_counter() - t0:.1f} s)")
         return
-    stats = got["stats"]
-    max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
-    calls = (1 + DRYRUN_DECODE_STEPS) * 7 * TRAIN_CUT_LAYERS
-    assert stats["max_err"] == 0 and stats["calls"] == calls, (stats, calls)
-    assert got["equal"], got
-    log(f"[mesh] two gloo ranks on the one card, a (1, 2) mesh (tensor parallel), "
-        f"{TRAIN_ARCH} {TRAIN_CUT_LAYERS} layers full width, mitchell: prefill + "
-        f"{DRYRUN_DECODE_STEPS} serve steps, rank 0's {stats['calls']} mitchell_matmul calls "
-        f"== plain (max |err| {stats['max_err']}); logits byte-equal to the unmeshed steps' "
-        f"(max |diff| {got['max_abs']:.6g}); collectives {got['collectives']} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    for name, (arch, layers, oracle_rank, denses) in TP_SHARED_CASES.items():
+        stats = got["ranks"][0]["cases"][name]["stats"]
+        case = got["ranks"][oracle_rank]["cases"][name]
+        max_err["mitchell_matmul"] = max(max_err["mitchell_matmul"], stats["max_err"])
+        calls = (1 + DRYRUN_DECODE_STEPS) * denses * layers
+        assert stats["max_err"] == 0 and stats["calls"] == calls, (name, stats, calls)
+        assert case["equal"], (name, case)
+        log(f"[mesh] two gloo ranks on the one card, a (1, 2) mesh (tensor parallel), "
+            f"{arch} {layers} layers full width, mitchell: prefill + {DRYRUN_DECODE_STEPS} "
+            f"serve steps, rank 0's {stats['calls']} mitchell_matmul calls == plain "
+            f"({denses} a layer a forward; max |err| {stats['max_err']}); logits byte-equal "
+            f"to the unmeshed steps' (rank {oracle_rank}; max |diff| {case['max_abs']:.6g}); "
+            f"collectives {case['collectives']}; meshed {case['mesh_s']:.1f} s, unmeshed "
+            f"{case['oracle_s']:.1f} s")
+    log(f"[mesh] the shared-card (1, 2) steps, spawn to end: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_mesh(device: torch.device, max_err: dict, smi: str,

@@ -36,6 +36,14 @@ Autograd functions:
     over a row axis, cut to this rank's block over another, and all-reduced
     over the row axes the param rests whole on. So each rank's grad is its
     block of the global grad, and the step all-reduces no grad whole.
+    The selection mode, `keep` = (dim, segments) (Mamba2's `in_proj`
+    columns [z, x, B, C, dt] and conv channels, whose at-rest blocks
+    straddle the segments): gathered over every axis, "model" included,
+    then this rank's part of `dim` taken (`segment_index`: its block of
+    each split segment, all of each whole one). Backward: the grad
+    scattered into zeros of the gathered shape, then reduce-scattered over
+    "model" (all-reduced where the param rests whole on it), which sums
+    the ranks' shares of the whole segments' grads.
   * `copy_to_model` (identity forward, all-reduce backward) and
     `reduce_from_model` (all-reduce forward, identity backward): the
     tensor-parallel pair over "model", Megatron's f and g;
@@ -267,17 +275,45 @@ class _OperandMax(torch.autograd.Function):
 
 def operand_max(x: torch.Tensor) -> torch.Tensor:
     """max(x) over the ranks that split the operand being quantized
-    (`batch_rows` / `weight_block`); else this tensor's."""
+    (`batch_rows` / `weight_block`); else this tensor's. Either way its
+    gradient is `_OperandMax`'s, the mask times the cotangent, so a NaN
+    cotangent reaches every element as it does through `jnp.max` (the
+    CPU backward of `torch.max` fills the max's position alone: R14)."""
     if _OPERAND is None or not _OPERAND[0]:
-        return x.max()
+        return _OperandMax.apply(x, (), ())
     return _OperandMax.apply(x, *_OPERAND)
 
 
 # ----------------------------------------------------------- FSDP gather ----
+def segment_index(segments, axis: Axis, device=None) -> torch.Tensor:
+    """The indices, along a dim laid out as `segments` ((length, split
+    over `axis`) each, in order), of this rank's part: its block of each
+    split segment, all of each whole one."""
+    parts, start = [], 0
+    for n, split in segments:
+        lo, k = (start + axis.index * (n // axis.size), n // axis.size) if split else (start, n)
+        parts.append(torch.arange(lo, lo + k, device=device))
+        start += n
+    return torch.cat(parts)
+
+
+def gather_segments(x: torch.Tensor, axis: Axis, dim: int, segments) -> torch.Tensor:
+    """The whole dim laid out as `segments` from each rank's part of it
+    (`segment_index`): the split segments all-gathered over `axis`, the
+    whole ones (the same on every rank) as they are."""
+    sizes = [n // axis.size if split else n for n, split in segments]
+    parts = torch.split(x, sizes, dim)
+    return torch.cat([all_gather(part, axis, dim) if split else part
+                      for part, (_, split) in zip(parts, segments)], dim)
+
+
 class _Gather(torch.autograd.Function):
     """`fsdp_gather`'s collectives (module docstring). `gathers`: (axis,
-    dim, row axis?) innermost mesh dim first; `narrow`: (axis, dim) or
-    None; `replicated`: the row axes the block rests whole on."""
+    dim, summed?) innermost mesh dim first, summed where the backward
+    reduce-scatters (a row axis, or "model" under a selection); `narrow`:
+    (axis, dim, segments or None) or None; `replicated`: the axes whose
+    shares the backward all-reduces (the row axes the block rests whole
+    on, and "model" for a selection on a block whole on it)."""
 
     @staticmethod
     def forward(ctx, local: torch.Tensor, gathers, narrow, replicated) -> torch.Tensor:
@@ -286,7 +322,11 @@ class _Gather(torch.autograd.Function):
         for axis, dim, _ in gathers:
             out = all_gather(out, axis, dim)
         if narrow is not None:
-            out = block(out, *narrow)
+            axis, dim, segs = narrow
+            if segs is not None:
+                ctx.whole = out.shape
+                return out.index_select(dim, segment_index(segs, axis, out.device))
+            out = block(out, axis, dim)
             if not gathers:
                 out = out.clone()
         return out.view_as(out) if out is local else out
@@ -295,7 +335,12 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         gathers, narrow, replicated = ctx.plan
         if narrow is not None:
-            g = all_gather(g, *narrow)
+            axis, dim, segs = narrow
+            if segs is None:
+                g = all_gather(g, axis, dim)
+            else:
+                g = g.new_zeros(ctx.whole).index_copy_(
+                    dim, segment_index(segs, axis, g.device), g)
         for axis, dim, is_row in reversed(gathers):
             g = reduce_scatter(g, axis, dim) if is_row else block(g, axis, dim).contiguous()
         if replicated:
@@ -305,25 +350,34 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None
 
 
-def fsdp_gather(t: torch.Tensor, keep: int | None = None) -> torch.Tensor:
+def fsdp_gather(t: torch.Tensor, keep: int | tuple | None = None) -> torch.Tensor:
     """A param's local block -> the tensor its layer computes on (module
-    docstring); `t` itself where no layout is registered for it."""
+    docstring): `keep` the dim whose "model" block the layer keeps, or
+    (dim, segments) for a selection; `t` itself where no layout is
+    registered for it."""
     layout = None if _MESH is None else _MESH.layouts.get(id(t))
     if layout is None:
         return t
     model = model_axis()
     rows = {a.name for a in row_axes()}
+    select = isinstance(keep, tuple) and model is not None
+    dim = keep[0] if isinstance(keep, tuple) else keep
     gathers, on_keep = [], False
-    for axis, dim in reversed(layout):
+    for axis, d in reversed(layout):
         if axis.size == 1:
             continue
-        if model is not None and axis.name == model.name and dim == keep:
+        is_model = model is not None and axis.name == model.name
+        if is_model and d == dim and not select:
             on_keep = True
             continue
-        gathers.append((axis, dim, axis.name in rows))
-    narrow = (model, keep) if model is not None and keep is not None and not on_keep else None
+        gathers.append((axis, d, axis.name in rows or (select and is_model)))
+    narrow = None
+    if model is not None and dim is not None and not on_keep:
+        narrow = (model, dim, keep[1] if select else None)
     sharded = {axis.name for axis, _ in layout}
     replicated = tuple(a for a in row_axes() if a.name not in sharded)
+    if select and model.name not in sharded:
+        replicated += (model,)
     if not (gathers or narrow or replicated):
         return t
     return _Gather.apply(t, tuple(gathers), narrow, replicated)
@@ -331,7 +385,8 @@ def fsdp_gather(t: torch.Tensor, keep: int | None = None) -> torch.Tensor:
 
 def gather_params(tree, keep: dict | None = None, prefix: str = ""):
     """`fsdp_gather` of every leaf of a param tree (nested dicts), with
-    `keep[path]` the dim its layer keeps split over "model"."""
+    `keep[path]` what its layer keeps of it over "model" (a dim, or a
+    selection)."""
     if isinstance(tree, torch.Tensor):
         return fsdp_gather(tree, (keep or {}).get(prefix))
     return {k: gather_params(v, keep, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
@@ -402,7 +457,7 @@ def split_to_model(x: torch.Tensor, axis: Axis | None, dim: int) -> torch.Tensor
 
 __all__ = ["Axis", "COLLECTIVES", "MeshState", "all_gather", "all_reduce", "all_reduce_rows",
            "batch_rows", "block", "copy_to_model", "count_collective", "fsdp_gather",
-           "gather_from_model", "gather_params", "mesh_axes", "mesh_state", "model_axis",
-           "model_split", "operand_max", "reduce_from_model", "reduce_scatter",
-           "reset_collectives", "row_axes", "row_groups", "rows_are_split",
+           "gather_from_model", "gather_params", "gather_segments", "mesh_axes", "mesh_state",
+           "model_axis", "model_split", "operand_max", "reduce_from_model", "reduce_scatter",
+           "reset_collectives", "row_axes", "row_groups", "rows_are_split", "segment_index",
            "split_to_model", "weight_block"]

@@ -21,16 +21,16 @@ the kernels' work.
 Every step computes on the reference's shards: the params stay sharded,
 each layer gathers only its FSDP blocks ("data", and "pod" under
 `fsdp_pod`) just before its forward, and computes on its "model" shard
-where the rules split it in whole heads, experts or vocab columns (the
-record's `tensor_parallel` says, a layer kind at a time, which did and
-which gathered a part whole: `models.transformer.tp_report`; "none" where
-no layer kind has a rule, or where the train step splits its rows over
-"model": `runtime.sharding.batch_axes`). A layer's
-gathered block is freed after it (under remat the recompute gathers
-again), so a rank's peak is its blocks at rest plus about one layer
-gathered. Adafactor and grad_compress still read whole grads
-(`train_lib`), so their train steps gather every grad and param whole at
-the update.
+where the rules split it in whole heads (attention's, Mamba2's), experts
+or vocab columns (the record's `tensor_parallel` says, a layer kind at a
+time, which did and which gathered a part whole:
+`models.transformer.tp_report`; "none" where no layer kind has a rule, or
+where the train step splits its rows over "model":
+`runtime.sharding.batch_axes`). A layer's gathered block is freed after
+it (under remat the recompute gathers again), so a rank's peak is its
+blocks at rest plus about one layer gathered. The update runs on each
+rank's blocks under either optimizer and with grad_compress
+(`train_lib`): no grad, param or optimizer statistic is gathered whole.
 
 A cell the port cannot run is an error record with the reason: the rows do
 not split over the mesh (`train_lib.row_split`: a MoE layer's chunks), or

@@ -16,6 +16,21 @@ float32, the conv state in the activations' dtype.
 `in_proj` and `out_proj` go through `layers.dense` with `impl`, so a
 quantized `matmul_method` runs them on the Hopper matmul kernels on the
 card; the scan itself is float arithmetic, as in the reference.
+
+Tensor parallelism (the reference's rules: `in_proj` column-parallel,
+`out_proj` row-parallel, `conv_w` on its channels, `a_log` / `dt_bias` /
+`d_skip` on the heads). Inside a meshed step whose "model" axis divides
+the heads (`core.collectives.model_split`), each rank computes on its
+contiguous block of heads: its z, x and dt columns of `in_proj`, its x
+channels of the conv, its SSD scan and state; B and C (one group) are
+computed on every rank. The gated RMSNorm's mean over d_inner sums each
+rank's squares over "model", and `out_proj`'s partial products are summed
+over it (`layers.dense(split="row")`: the int32 sums before the rescale
+under a quantized method). `in_proj`'s columns and the conv's channels
+rest in contiguous blocks that straddle the [z, x, B, C, dt] segments, so
+the per-layer gather selects this rank's part of each segment
+(`mamba2_keep`, `core.collectives.fsdp_gather`), and so does the meshed
+serve step for the conv cache (`runtime.serve_lib`).
 """
 from __future__ import annotations
 
@@ -24,6 +39,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import copy_to_model, model_split, reduce_from_model
 from repro_torch.models.layers import _randn, dense, dense_init
 
 Params = dict[str, Any]
@@ -54,9 +70,30 @@ def mamba2_init(gen: torch.Generator, cfg) -> Params:
     }
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg) -> tuple[torch.Tensor, ...]:
+def segments(cfg) -> tuple[tuple, tuple]:
+    """The layouts of `in_proj`'s columns ([z, x, B, C, dt]) and of the
+    conv's channels ([x, B, C]): (length, split over "model") a segment,
+    as `core.collectives.segment_index` reads them."""
     d_inner, nheads, _, n = _dims(cfg)
-    return torch.split(zxbcdt, [d_inner, d_inner, n, n, nheads], dim=-1)
+    return (((d_inner, True), (d_inner, True), (n, False), (n, False), (nheads, True)),
+            ((d_inner, True), (n, False), (n, False)))
+
+
+def mamba2_keep(cfg, prefix: str) -> dict:
+    """{param path: what its layer keeps of it over "model"} of a Mamba2
+    mixer under `prefix` where its heads split (module docstring), {}
+    elsewhere: the dim of a contiguous block (the heads' vectors, the
+    norm's scale, `out_proj`'s rows), or (dim, segments) for `in_proj`'s
+    columns and the conv's channels, whose rank's part is a block of each
+    split segment and the whole of the others."""
+    _, nheads, _, _ = _dims(cfg)
+    if model_split(nheads) is None:
+        return {}
+    cols, chans = segments(cfg)
+    keep: dict = {f"{prefix}/{k}": 0 for k in ("a_log", "dt_bias", "d_skip", "norm_scale")}
+    keep.update({f"{prefix}/out_proj/w": 0, f"{prefix}/in_proj/w": (1, cols),
+                 f"{prefix}/conv_w": (1, chans), f"{prefix}/conv_b": (0, chans)})
+    return keep
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -139,25 +176,51 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 def mamba2_mixer(p: Params, x: torch.Tensor, cfg, *, ssm_state: torch.Tensor | None = None,
                  conv_state: torch.Tensor | None = None, decode: bool = False,
                  impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
-    """x: (B, S, D) -> (y (B, S, D), new SSD state, new conv state).
+    """x: (B, S, D) -> (y (B, S, D), new SSD state, new conv state); on
+    this rank's heads where they split over "model" (module docstring),
+    the states too.
 
     decode=True runs the O(1) recurrence (S small, typically 1)."""
-    bsz, s, _ = x.shape
-    d_inner, nheads, hd, n = _dims(cfg)
+    d_inner, nheads, _, _ = _dims(cfg)
     mm = cfg.matmul_method
+    m = model_split(nheads)
+    col, row = ("col", "row") if m else (None, None)
 
-    zxbcdt = dense(p["in_proj"], x, method=mm, impl=impl)
-    z, xs, bmat, cmat, dt = _split_proj(zxbcdt, cfg)
+    zxbcdt = dense(p["in_proj"], copy_to_model(x, m), method=mm, impl=impl, split=col)
+    y, h_last, new_conv = mixer_heads(p, zxbcdt, cfg, nheads // (m.size if m else 1),
+                                      ssm_state=ssm_state, conv_state=conv_state, decode=decode)
+    # gated RMSNorm (mamba2's norm before the out projection), its mean
+    # over the whole d_inner
+    yf = y.to(torch.float32)
+    if m is None:
+        ms = (yf ** 2).mean(-1, keepdim=True)
+    else:       # every rank's squares; the sum's cotangent summed back over "model"
+        ms = reduce_from_model(copy_to_model((yf ** 2).sum(-1, keepdim=True), m), m) / d_inner
+    y = (yf * torch.rsqrt(ms + 1e-6) * p["norm_scale"]).to(x.dtype)
+    return dense(p["out_proj"], y, method=mm, impl=impl, split=row), h_last, new_conv
+
+
+def mixer_heads(p: Params, zxbcdt: torch.Tensor, cfg, heads: int, *,
+                ssm_state: torch.Tensor | None = None, conv_state: torch.Tensor | None = None,
+                decode: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The mixer between the projections on `heads` heads (all of them, or
+    a rank's block): `zxbcdt` their [z, x, B, C, dt] columns, `p`'s conv
+    and head params theirs. -> (the gated y (B, S, heads * P) before the
+    norm, in zxbcdt's dtype; the new SSD state; the new conv state)."""
+    bsz, s, _ = zxbcdt.shape
+    _, _, hd, n = _dims(cfg)
+    d_loc = heads * hd
+    z, xs, bmat, cmat, dt = torch.split(zxbcdt, [d_loc, d_loc, n, n, heads], dim=-1)
     xbc = torch.cat([xs, bmat, cmat], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
-    xs, bmat, cmat = torch.split(xbc, [d_inner, n, n], dim=-1)
+    xs, bmat, cmat = torch.split(xbc, [d_loc, n, n], dim=-1)
 
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"][None, None, :])
-    xh = xs.reshape(bsz, s, nheads, hd)
+    xh = xs.reshape(bsz, s, heads, hd)
 
     if decode:
         a = -torch.exp(p["a_log"])                                # (H,)
-        h = (torch.zeros((bsz, nheads, hd, n), dtype=torch.float32, device=x.device)
+        h = (torch.zeros((bsz, heads, hd, n), dtype=torch.float32, device=zxbcdt.device)
              if ssm_state is None else ssm_state.to(torch.float32))
         ys = []
         for t in range(s):                                        # decode S is 1
@@ -174,13 +237,8 @@ def mamba2_mixer(p: Params, x: torch.Tensor, cfg, *, ssm_state: torch.Tensor | N
                                 min(cfg.ssm_chunk, s), ssm_state)
 
     y = y + p["d_skip"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
-    # gated RMSNorm (mamba2's norm before the out projection)
-    y = y * F.silu(z)
-    yf = y.to(torch.float32)
-    ms = (yf ** 2).mean(-1, keepdim=True)
-    y = (yf * torch.rsqrt(ms + 1e-6) * p["norm_scale"]).to(x.dtype)
-    return dense(p["out_proj"], y, method=mm, impl=impl), h_last, new_conv
+    y = y.reshape(bsz, s, d_loc).to(zxbcdt.dtype)
+    return y * F.silu(z), h_last, new_conv
 
 
-__all__ = ["mamba2_init", "mamba2_mixer"]
+__all__ = ["mamba2_init", "mamba2_keep", "mamba2_mixer", "mixer_heads", "segments"]

@@ -37,10 +37,11 @@ axes ("data", and "pod" under `fsdp_pod`) and over "model", except the
 blocks its tensor- or expert-parallel compute keeps (`layer_keep`). Under
 remat the gather is inside the checkpointed span, so the recompute
 gathers again, and each layer's gathered block is freed after its
-forward; the serving path frees it after the layer too. The layer kinds
-with no tensor-parallel rule (Mamba2, whose `in_proj` packs z, x, B, C
-and dt, and the xLSTM blocks) gather over every axis and compute whole,
-one layer at a time.
+forward; the serving path frees it after the layer too. Mamba2 splits
+its heads over "model" (`models.ssm`; its `in_proj` columns and conv
+channels by a selection of each z / x / B / C / dt segment). The xLSTM
+blocks, which have no tensor-parallel rule, gather over every axis and
+compute whole, one layer at a time.
 
 zamba2's weight-shared attention + MLP block (`shared_block`) is built
 whenever `cfg.shared_attn_period` is set, and applied only by the
@@ -84,6 +85,14 @@ Params = dict[str, Any]
 
 #: the block kinds with self-attention and an attention cache
 ATTN_KINDS = ("attn", "moe", "attn_cross")
+#: the block kinds with a tensor-parallel rule over "model"
+TP_KINDS = (*ATTN_KINDS, "mamba2")
+
+
+def split_heads(kind: str, cfg) -> int:
+    """The heads a layer of `kind` (in TP_KINDS) splits over "model": the
+    query heads of an attention, the SSM heads of Mamba2."""
+    return ssm_lib._dims(cfg)[1] if kind == "mamba2" else cfg.num_heads
 
 
 def segment_kinds(kinds: list[str], max_pattern: int = 8) -> list[tuple[tuple[str, ...], int]]:
@@ -262,11 +271,13 @@ def _apply_block(kind: str, p: Params, x: torch.Tensor, cfg, *, positions: torch
     raise ValueError(kind)
 
 
-def layer_keep(kind: str, cfg) -> dict[str, int]:
-    """{param path in the layer: the dim kept split over "model"} of a
-    layer of `kind` (or of "shared_block"): its tensor- and
-    expert-parallel weights (`layers`, `moe`); every other leaf is
-    gathered whole."""
+def layer_keep(kind: str, cfg) -> dict:
+    """{param path in the layer: what its layer keeps of it over "model"}
+    of a layer of `kind` (or of "shared_block"): its tensor- and
+    expert-parallel weights (`layers`, `moe`, `ssm`), each by the dim it
+    keeps split or, for Mamba2's packed projections, a selection
+    (`core.collectives.fsdp_gather`); every other leaf is gathered
+    whole."""
     if kind in ATTN_KINDS:
         keep = mla_keep(cfg, "attn") if cfg.attention == "mla" else attn_keep(cfg, "attn")
         if kind == "moe":
@@ -278,6 +289,8 @@ def layer_keep(kind: str, cfg) -> dict[str, int]:
         return keep
     if kind == "shared_block":          # zamba2's shared attention + MLP
         return {**attn_keep(cfg, "attn"), **mlp_keep(cfg.d_ff, "mlp")}
+    if kind in ("mamba2", "mamba2_shared"):
+        return ssm_lib.mamba2_keep(cfg, "mixer")
     return {}
 
 
@@ -301,6 +314,8 @@ def tp_report(cfg) -> dict[str, str]:
                 parts["experts"] = model_split(cfg.num_experts) is not None
             elif cfg.d_ff:
                 parts["mlp"] = model_split(cfg.d_ff) is not None
+        elif kind == "mamba2":
+            parts["heads"] = model_split(split_heads(kind, cfg)) is not None
         if not parts or not any(parts.values()):
             out[kind] = "gathered"
         elif all(parts.values()):
@@ -395,5 +410,5 @@ def backbone_apply(params: Params, cfg, x: torch.Tensor, *, positions: torch.Ten
     return x, new_caches, aux_total
 
 
-__all__ = ["backbone_apply", "backbone_init", "init_caches", "layer_keep", "pattern_runs",
-           "segment_kinds", "tp_report"]
+__all__ = ["ATTN_KINDS", "TP_KINDS", "backbone_apply", "backbone_init", "init_caches",
+           "layer_keep", "pattern_runs", "segment_kinds", "split_heads", "tp_report"]

@@ -10,6 +10,12 @@ scale of a segment leaf is taken over the whole stack of its layers
 (`repro_torch.optim.optimizers.Group`), and the residual keeps the stacked
 shape.
 
+On a mesh (`runtime.train_lib`) the grads and the residual are this rank's
+blocks of the stacked leaf: the abs-max is the block's, all-reduced (max)
+over the mesh axes that split the leaf, and each block is quantized,
+dequantized and kept where it is. A max is exact, so the dequantized
+blocks and the residual are those of the whole-leaf codec, to the byte.
+
 `shard_map_allreduce_i8(x, mesh, axis)` is the reference's int8
 all-reduce, on the ranks of a `DeviceMesh` axis: the ranks agree on one
 scale first (an all-reduce of the abs-max, one float), then sum their int8
@@ -24,21 +30,26 @@ from repro_torch.core.quant import f32
 from repro_torch.optim.optimizers import Group
 
 
-def _quantize(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.maximum(g.abs().max(), f32(1e-30, g)) / f32(127.0, g)
+def _quantize(g: torch.Tensor, axes: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
+    gmax = g.abs().max()
+    for a in axes:
+        all_reduce(gmax, "max", a)
+    scale = torch.maximum(gmax, f32(1e-30, g)) / f32(127.0, g)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_grads(grads: list[list[torch.Tensor]], ef: dict,
-                   groups: list[Group]) -> tuple[list[list[torch.Tensor]], dict]:
+def compress_grads(grads: list[list[torch.Tensor]], ef: dict, groups: list[Group],
+                   axes: list[tuple] | None = None) -> tuple[list[list[torch.Tensor]], dict]:
     """grads + error-feedback residual -> (dequantized grads, new residual);
-    `grads` and the result list, per group, the per-layer grads."""
+    `grads` and the result list, per group, the per-layer grads (on a mesh
+    their blocks, and `axes`, per group, the mesh axes that split its leaf:
+    module docstring)."""
     out, new_ef = [], {}
-    for group, gs in zip(groups, grads):
+    for i, (group, gs) in enumerate(zip(groups, grads)):
         g = torch.stack(gs) if group.stacked else gs[0]
         gf = g.to(torch.float32) + ef[group.key]
-        q, scale = _quantize(gf)
+        q, scale = _quantize(gf, axes[i] if axes else ())
         deq = q.to(torch.float32) * scale
         new_ef[group.key] = gf - deq
         out.append(list(deq.unbind(0)) if group.stacked else [deq])

@@ -25,9 +25,26 @@ stacked shapes, keyed by that path. What that changes:
     then written back: a copy of the group's grads and params at a time,
     beside the update's temporaries of the same size.
 
-`update(grads, state, groups, lr)` changes the params (float32 leaves that
-require grad, written under `torch.no_grad`) and the state in place and
-returns the state; `grads` is a list, per group, of the per-layer grads.
+`update(grads, state, groups, lr, splits=None)` changes the params (float32
+leaves that require grad, written under `torch.no_grad`) and the state in
+place and returns the state; `grads` is a list, per group, of the
+per-layer grads.
+
+On a mesh each rank updates its blocks (`runtime.train_lib`): the params,
+grads and state leaves are this rank's blocks, and `splits` gives, a group
+at a time, the mesh axes that split each dim of the stacked grad block and
+of each state leaf at rest (`Split`). AdamW is element-wise and reads none
+of it. Adafactor's reductions over the stack become global: the row and
+column means are local sums all-reduced over the axes that split the
+reduced dim, then divided by its whole size; the sum of `vr` is
+all-reduced over the axes that split its last dim; the clip's mean of
+step**2 is all-reduced over every axis that splits the leaf. Where a
+statistic rests split over other axes than the grad block's dim (`vc`'s
+specs follow the param's leading logical names), it moves between the
+two layouts as a zero-padded whole vector all-reduced over the axes it
+leaves (m + n floats a leaf, never the grad). Inside each element the
+float32 order of operations is the unsplit one; only the cross-rank sums
+are added in another order.
 """
 from __future__ import annotations
 
@@ -35,6 +52,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.collectives import all_reduce
 from repro_torch.core.quant import f32
 from repro_torch.core.tree import tree_paths
 from repro_torch.models.transformer import segment_kinds
@@ -54,7 +72,93 @@ class Group(NamedTuple):
 
 class Optimizer(NamedTuple):
     init: Callable[[list[Group]], dict]
-    update: Callable[..., dict]     # (grads, state, groups, lr) -> state, in place
+    update: Callable[..., dict]     # (grads, state, groups, lr, splits) -> state, in place
+
+
+#: per dim of a block, the mesh axes (`core.collectives.Axis`, mesh order,
+#: the first major) that split it; () where the dim is whole
+Dims = tuple[tuple, ...]
+
+
+class Split(NamedTuple):
+    """How a group's blocks lie on the mesh (module docstring): the dims
+    of its stacked grad block (the params' blocks are the same), and of
+    each of its state leaves at rest, by name."""
+    grad: Dims
+    state: dict[str, Dims]
+
+    @property
+    def axes(self) -> tuple:
+        """Every axis that splits the grad block, in dim order."""
+        return tuple(a for d in self.grad for a in d)
+
+
+def _whole(ndim: int) -> Dims:
+    return ((),) * ndim
+
+
+def _index(axes) -> tuple[int, int]:
+    """(this rank's block index, the blocks' number) over `axes`."""
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * a.size + a.index, n * a.size
+    return idx, n
+
+
+def _relayout(x: torch.Tensor, src: Dims, dst: Dims, summed: tuple = ()) -> torch.Tensor:
+    """`x`, a block split as `src`, as the block split as `dst`, summed
+    over the axes `summed` (each rank's share of the sum): on each dim
+    whose axes differ, zero-padded to the whole dim and all-reduced over
+    the axes it leaves, then cut to `dst`'s block. `x` itself where
+    nothing moves and nothing is summed."""
+    moved = [d for d in range(x.ndim) if src[d] != dst[d]]
+    if not moved and not summed:
+        return x
+    x = x.clone()
+    for d in moved:
+        idx, n = _index(src[d])
+        whole = x.new_zeros((*x.shape[:d], x.shape[d] * n, *x.shape[d + 1:]))
+        whole.narrow(d, idx * x.shape[d], x.shape[d]).copy_(x)
+        x = whole
+    for a in (*summed, *(a for d in moved for a in src[d])):
+        all_reduce(x, "sum", a)
+    for d in moved:
+        idx, n = _index(dst[d])
+        x = x.narrow(d, idx * (x.shape[d] // n), x.shape[d] // n)
+    return x
+
+
+def _mean_to(x: torch.Tensor, dim: int, dims: Dims, dst: Dims) -> torch.Tensor:
+    """The mean of the whole leaf over `dim`, of which `x` is the block
+    split as `dims`, as the block split as `dst`; `x.mean(dim)` where
+    nothing is split."""
+    red = dims[dim]
+    kept = dims[:dim % x.ndim] + dims[dim % x.ndim + 1:]
+    if not red:
+        return _relayout(x.mean(dim), kept, dst)
+    n = x.shape[dim] * _index(red)[1]
+    return _relayout(x.sum(dim), kept, dst, red) / f32(n, x)
+
+
+def _sum_last(x: torch.Tensor, dims: Dims) -> torch.Tensor:
+    """The sum over the last dim of the whole leaf of which `x` is the
+    block split as `dims`, keepdim."""
+    s = x.sum(-1, keepdim=True)
+    for a in dims[-1]:
+        all_reduce(s, "sum", a)
+    return s
+
+
+def _mean_all(x: torch.Tensor, dims: Dims) -> torch.Tensor:
+    """The mean of every element of the whole leaf of which `x` is the
+    block split as `dims`."""
+    axes = [a for d in dims for a in d]
+    if not axes:
+        return torch.mean(x)
+    s = torch.sum(x)
+    for a in axes:
+        all_reduce(s, "sum", a)
+    return s / f32(x.numel() * _index(axes)[1], x)
 
 
 def param_groups(params: dict, cfg) -> list[Group]:
@@ -106,7 +210,8 @@ def adamw(*, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                   "v": _zeros(g.shape, g.params[0])} for g in groups}}
 
     @torch.no_grad()
-    def update(grads, state: dict, groups: list[Group], lr: torch.Tensor) -> dict:
+    def update(grads, state: dict, groups: list[Group], lr: torch.Tensor,
+               splits: list[Split] | None = None) -> dict:
         count = state["count"].add_(1).to(torch.float32)
         c1 = 1.0 - f32(b1, count) ** count
         c2 = 1.0 - f32(b2, count) ** count
@@ -141,35 +246,40 @@ def adafactor(*, eps: float = 1e-30, clip_threshold: float = 1.0,
         return {"count": _count(groups), "state": {g.key: one(g) for g in groups}}
 
     @torch.no_grad()
-    def update(grads, state: dict, groups: list[Group], lr: torch.Tensor) -> dict:
+    def update(grads, state: dict, groups: list[Group], lr: torch.Tensor,
+               splits: list[Split] | None = None) -> dict:
         count = state["count"].add_(1).to(torch.float32)
         beta = 1.0 - count ** (-decay)
-        for group, gs in zip(groups, grads):
+        for i, (group, gs) in enumerate(zip(groups, grads)):
             s = state["state"][group.key]
             if group.stacked:
                 g, p = torch.stack([g.to(torch.float32) for g in gs]), torch.stack(group.params)
             else:
                 g, p = gs[0].to(torch.float32), group.params[0]
+            dims = splits[i].grad if splits else _whole(g.ndim)
+            rest = splits[i].state if splits else {k: _whole(t.ndim) for k, t in s.items()}
             g2 = g * g + eps
             if p.ndim >= 2:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
-                denom = vr[..., None] * vc[..., None, :] / (
-                    vr.sum(-1, keepdim=True)[..., None] + eps)
-                step = g * torch.rsqrt(denom + eps)
+                rows, cols = dims[:-1], dims[:-2] + dims[-1:]
+                vr = beta * s["vr"] + (1 - beta) * _mean_to(g2, -1, dims, rest["vr"])
+                vc = beta * s["vc"] + (1 - beta) * _mean_to(g2, -2, dims, rest["vc"])
                 s["vr"].copy_(vr)
                 s["vc"].copy_(vc)
+                vr, vc = _relayout(vr, rest["vr"], rows), _relayout(vc, rest["vc"], cols)
+                denom = vr[..., None] * vc[..., None, :] / (
+                    _sum_last(vr, rows)[..., None] + eps)
+                step = g * torch.rsqrt(denom + eps)
             else:
-                v = beta * s["v"] + (1 - beta) * g2
+                v = beta * _relayout(s["v"], rest["v"], dims) + (1 - beta) * g2
                 step = g * torch.rsqrt(v + eps)
-                s["v"].copy_(v)
+                s["v"].copy_(_relayout(v, dims, rest["v"]))
             # update clipping (RMS of step <= clip_threshold)
-            rms = torch.sqrt(torch.mean(step * step) + eps)
+            rms = torch.sqrt(_mean_all(step * step, dims) + eps)
             step = step / torch.maximum(f32(1.0, rms), rms / f32(clip_threshold, rms))
             new_p = p - lr * (step + weight_decay * p)
             if group.stacked:
-                for i, t in enumerate(group.params):
-                    t.copy_(new_p[i])
+                for j, t in enumerate(group.params):
+                    t.copy_(new_p[j])
             else:
                 p.copy_(new_p)
         return state
@@ -185,4 +295,5 @@ def get_optimizer(name: str, **kw) -> Optimizer:
     raise ValueError(f"unknown optimizer {name!r}")
 
 
-__all__ = ["Group", "Optimizer", "adafactor", "adamw", "get_optimizer", "param_groups"]
+__all__ = ["Dims", "Group", "Optimizer", "Split", "adafactor", "adamw", "get_optimizer",
+           "param_groups"]

@@ -20,14 +20,19 @@ with `param_shardings` / `cache_shardings`:
     check: a rank's tokens must be whole chunks of the global stream, or
     ValueError;
   * the caches rest by `sharding.cache_shardings`: the k and v heads over
-    "model" where the kv heads divide it. Before the step each is gathered
+    "model" where the kv heads divide it, Mamba2's SSD state on its heads
+    and its conv state on its channels. Before the step each is gathered
     over the mesh dims that split its other dims, so that each layer gets
-    this rank's rows and, for an attention whose kv heads split over
-    "model", this rank's heads (`_cache_keep`); a gathered layer's state
-    (Mamba2's heads) is gathered whole. The step writes the new keys and
-    values into them in place (`models.layers.donated_caches`, the
-    reference's donated caches); each rank then writes its block back
-    into the DTensor, and the step returns the caches it was given;
+    this rank's rows and, where it splits its heads over "model", this
+    rank's heads (`_cache_plan`): an attention's kv heads, Mamba2's SSD
+    state; Mamba2's conv state, whose channel blocks straddle its x / B /
+    C segments, is gathered whole and this rank's x channels and B / C
+    taken (`core.collectives.segment_index`), and after the step the x
+    channels are all-gathered back (`gather_segments`). The step writes
+    the new keys and values into them in place
+    (`models.layers.donated_caches`, the reference's donated caches); each
+    rank then writes its block back into the DTensor, and the step returns
+    the caches it was given;
   * the logits are gathered over "model" (`Model.prefill` /
     `decode_step`) and over the batch axes (with prefill's cache_len):
     every rank returns the whole batch's, as the reference's replicated
@@ -56,11 +61,12 @@ def make_prefill_step(model, mesh=None) -> Callable:
 
     def prefill_step(params, batch: dict, caches):
         rows, axes = _rows(model.cfg, mesh, batch)
-        keep = _cache_keep(model.cfg, mesh)
+        keep, select = _cache_plan(model.cfg, mesh)
         with _split_ctx(model.cfg, mesh, params, axes) as local:
             logits, new_caches, cache_len = model.prefill(
-                local, {k: x[rows] for k, x in batch.items()}, _local_caches(caches, axes, keep))
-        shd.keep_blocks(caches, new_caches, keep_dim=keep)
+                local, {k: x[rows] for k, x in batch.items()},
+                _local_caches(caches, axes, keep, select))
+        shd.keep_blocks(caches, _whole_channels(new_caches, select), keep_dim=keep)
         return _all_rows(logits, mesh, axes), caches, _all_rows(cache_len, mesh, axes)
     return prefill_step
 
@@ -85,10 +91,11 @@ def make_serve_step(model, *, seq_len: int, mesh=None) -> Callable:
 
     def serve_step(params, tokens, caches):
         rows, axes = _rows(model.cfg, mesh, {"tokens": tokens})
-        keep = _cache_keep(model.cfg, mesh)
+        keep, select = _cache_plan(model.cfg, mesh)
         with _split_ctx(model.cfg, mesh, params, axes) as local:
-            logits, new_caches = decode(local, tokens[rows], _local_caches(caches, axes, keep))
-        shd.keep_blocks(caches, new_caches, keep_dim=keep)
+            logits, new_caches = decode(local, tokens[rows],
+                                        _local_caches(caches, axes, keep, select))
+        shd.keep_blocks(caches, _whole_channels(new_caches, select), keep_dim=keep)
         return _all_rows(logits, mesh, axes), caches
     return serve_step
 
@@ -122,30 +129,69 @@ def _split_ctx(cfg, mesh, params, axes: tuple[str, ...]):
 _HEAD_LEAVES = ("k", "v", "k_img", "v_img")
 
 
-def _cache_keep(cfg, mesh):
-    """(path, leaf) -> the dims of a cache leaf that stay this rank's
-    block: the rows, and the kv heads of an attention that splits them
-    over "model" (`models.layers.attn_splits`)."""
+def _cache_plan(cfg, mesh):
+    """(keep, select) of the caches' leaves: `keep(path, leaf)` the dims
+    that stay this rank's block -- the rows, the kv heads of an attention
+    that splits them over "model" (`models.layers.attn_splits`), the heads
+    of a Mamba2 SSD state that splits them --; `select(path)` (the "model"
+    Axis, the conv channels' segments) for a Mamba2 conv state on split
+    heads, else None."""
+    from repro_torch.core.collectives import mesh_axes
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import split_heads
     names = list(mesh.mesh_dim_names)
     m = mesh.size(names.index("model")) if "model" in names else 1
-    heads = (shd.model_parallel(cfg, mesh) and m > 1 and cfg.num_heads % m == 0
-             and cfg.num_kv_heads % m == 0)
+    tp = shd.model_parallel(cfg, mesh) and m > 1
+    heads = tp and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    ssm_split = tp and "mamba2" in cfg.block_kinds() and split_heads("mamba2", cfg) % m == 0
+    kinds = cfg.block_kinds()
+
+    def mamba(path: str) -> bool:
+        return ssm_split and kinds[int(path.split("/")[0])] == "mamba2"
 
     def keep(path: str, _) -> tuple[int, ...]:
-        return (0, 2) if heads and path.split("/")[-1] in _HEAD_LEAVES else (0,)
-    return keep
+        leaf = path.split("/")[-1]
+        if heads and leaf in _HEAD_LEAVES:
+            return (0, 2)
+        return (0, 1) if leaf == "ssm" and mamba(path) else (0,)
+
+    def select(path: str):
+        if path.split("/")[-1] == "conv" and mamba(path):
+            return mesh_axes(mesh)["model"], ssm.segments(cfg)[1]
+        return None
+    return keep, select
 
 
-def _local_caches(caches, axes: tuple[str, ...], keep):
+def _local_caches(caches, axes: tuple[str, ...], keep, select):
     """Each cache with only its `keep` dims split (the batch dim over
-    `axes`, as the rows are, or ValueError)."""
+    `axes`, as the rows are, or ValueError), and this rank's channels of
+    a `select`ed one."""
+    from repro_torch.core.collectives import segment_index
     from repro_torch.core.tree import tree_map_with_path, tree_paths
     for path, t in tree_paths(caches):
         split = shd.spec_axes(shd.spec_of(t)[0]) if shd.is_sharded(t) else ()
         if split != axes:
             raise ValueError(f"cache {path}: its batch dim is split over {split}, "
                              f"the rows over {axes}")
-    return tree_map_with_path(lambda path, t: shd.gather(t, keep(path, t), copy=False), caches)
+
+    def local(path: str, t):
+        out = shd.gather(t, keep(path, t), copy=False)
+        sel = select(path)
+        return out if sel is None else out.index_select(-1, segment_index(sel[1], sel[0],
+                                                                          out.device))
+    return tree_map_with_path(local, caches)
+
+
+def _whole_channels(caches, select):
+    """The step's new caches with each `select`ed conv state's channels
+    whole again (`core.collectives.gather_segments`)."""
+    from repro_torch.core.collectives import gather_segments
+    from repro_torch.core.tree import tree_map_with_path
+
+    def whole(path: str, t):
+        sel = select(path)
+        return t if sel is None else gather_segments(t, sel[0], t.ndim - 1, sel[1])
+    return tree_map_with_path(whole, caches)
 
 
 def _all_rows(x: torch.Tensor, mesh, axes: tuple[str, ...]) -> torch.Tensor:

@@ -300,18 +300,21 @@ def batch_shardings(batch, cfg, mesh, *, multi_pod: bool):
 
 def batch_axes(cfg, mesh, rows: int, *, multi_pod: bool) -> tuple[str, ...]:
     """The mesh axes a train step's batch of `rows` rows splits over: the
-    rules' "batch" axes, and "model" after them where no layer splits its
-    heads over it: no tensor-parallel rule (`model_parallel`), or query
-    heads that do not divide it (qwen2-0.5b's 14 on 16), whose attention
-    every rank of "model" would run whole on the same rows. An axis the
-    rows do not divide drops out with those after it; where "model" drops
-    out so, a config with a rule keeps its tensor parallelism, the
-    attention whole on every rank (the reference's divisibility
-    fallback)."""
+    rules' "batch" axes, and "model" after them where not every layer
+    splits its heads over it: no tensor-parallel rule (`model_parallel`,
+    the xLSTM stack), or heads that do not divide it (qwen2-0.5b's 14
+    query heads on 16), whose layers every rank of "model" would run whole
+    on the same rows. An axis the rows do not divide drops out with those
+    after it; where "model" drops out so, a config with a rule keeps its
+    tensor parallelism, the attention whole on every rank (the
+    reference's divisibility fallback)."""
+    from repro_torch.models.transformer import TP_KINDS, split_heads
     rules = logical_rules(cfg, multi_pod)
     sizes = axis_sizes(mesh)
-    split_heads = model_parallel(cfg, mesh) and cfg.num_heads % sizes["model"] == 0
-    if "model" in sizes and "model" not in rules["batch"] and not split_heads:
+    split = model_parallel(cfg, mesh) and all(
+        split_heads(kind, cfg) % sizes["model"] == 0
+        for kind in dict.fromkeys(cfg.block_kinds()) if kind in TP_KINDS)
+    if "model" in sizes and "model" not in rules["batch"] and not split:
         rules = {**rules, "batch": rules["batch"] + ("model",)}
     return spec_axes(_resolve(("batch",), (rows,), rules, mesh)[0])
 
@@ -392,12 +395,6 @@ def _dims(keep_dim) -> tuple[int, ...]:
     return () if keep_dim is None else (keep_dim,) if isinstance(keep_dim, int) else keep_dim
 
 
-def gather_tree(tree, keep_dim: int | tuple[int, ...] | None = None):
-    """`gather` of every leaf of `tree` (a plain leaf as it is)."""
-    from repro_torch.core.tree import tree_map_with_path
-    return tree_map_with_path(lambda _, t: gather(t, keep_dim), tree)
-
-
 def block_of(full: torch.Tensor, t, keep_dim: int | tuple[int, ...] | None = None) -> torch.Tensor:
     """This rank's block of `full`, as the leaf `t` holds it (a plain leaf:
     all of it); with `keep_dim`, `full` already holds this rank's block of
@@ -462,12 +459,13 @@ def model_parallel(cfg, mesh) -> bool:
     """Whether layers compute on their "model" shard on `mesh`, decided
     from the config's structure: a "model" axis that is not folded into
     batch and FSDP (`prefer_dp`), and a layer kind with a tensor-parallel
-    rule (attention, MoE, cross-attention; not zamba2's Mamba2 stack). A
-    step whose rows split over "model" (`batch_axes`) computes on no
-    "model" shard all the same (`activation_sharding_ctx`)."""
-    from repro_torch.models.transformer import ATTN_KINDS
+    rule (attention, MoE, cross-attention, Mamba2: `transformer.TP_KINDS`;
+    not the xLSTM blocks). A step whose rows split over "model"
+    (`batch_axes`) computes on no "model" shard all the same
+    (`activation_sharding_ctx`)."""
+    from repro_torch.models.transformer import TP_KINDS
     return ("model" in mesh.mesh_dim_names and not cfg.prefer_dp
-            and any(kind in ATTN_KINDS for kind in cfg.block_kinds()))
+            and any(kind in TP_KINDS for kind in cfg.block_kinds()))
 
 
 def activation_sharding_ctx(mesh, cfg, *, multi_pod: bool = False,
@@ -488,7 +486,7 @@ def activation_sharding_ctx(mesh, cfg, *, multi_pod: bool = False,
 
 __all__ = ["COLLECTIVES", "Sharding", "activation_sharding_ctx", "all_reduce", "axis_sizes",
            "batch_axes", "batch_shardings", "block_of", "cache_shardings", "distribute",
-           "distribute_tree", "ef_shardings", "gather", "gather_tree", "is_sharded",
+           "distribute_tree", "ef_shardings", "gather", "is_sharded",
            "keep_blocks", "layout_of", "local_blocks", "logical_rules", "mesh_device",
            "model_parallel", "opt_shardings", "param_shardings", "placements",
            "reset_collectives", "scalar_sharding", "shard_of", "spec_of"]

@@ -25,9 +25,9 @@ optimizer state and residual are DTensors holding this rank's block; the
 step and the optimizer's count stay whole), and the step computes on the
 reference's shards (`runtime.sharding.activation_sharding_ctx`):
   * the rows split over the rules' batch axes ("data", or ("pod",
-    "data"), and "model" too where no layer splits its heads over it:
-    zamba2's Mamba2 stack, qwen2-0.5b's 14 heads on 16; an axis a
-    microbatch's rows do not divide drops out), and the ranks along the other axes share their rows
+    "data"), and "model" too where not every layer splits its heads over
+    it: qwen2-0.5b's 14 heads on 16; an axis a microbatch's rows do not
+    divide drops out), and the ranks along the other axes share their rows
     (`sharding.batch_axes`, `rank_rows`). Every reduction that spans rows
     stays global over them, as in the reference's GSPMD step: the
     quantizer's abs-max of each activation (`core.quant`), the loss's
@@ -41,11 +41,13 @@ reference's shards (`runtime.sharding.activation_sharding_ctx`):
     block of the global grad: reduce-scattered over the FSDP axes and
     all-reduced over the row axes the param rests whole on. No grad is
     all-reduced whole.
-AdamW then runs on each rank's blocks (element-wise, so exact), and the
-grad norm sums each block's squares over the axes that shard it.
-grad_compress and Adafactor, which couple a whole stacked leaf, read the
-grads whole (all-gathered from the blocks), as on one device, and each
-rank keeps its blocks of what they give. The metrics are global.
+The update runs on each rank's blocks, and no grad, param or optimizer
+statistic is gathered whole for it: AdamW is element-wise; grad_compress
+takes each leaf's abs-max over the axes that split it and keeps its
+residual as a block (`optim.grad_compress`); Adafactor reduces its factored
+statistics and its clip over the axes that split each leaf (`optim.
+optimizers.Split`, built here from the blocks' layouts). The grad norm sums
+each block's squares over the axes that shard it. The metrics are global.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ from repro_torch.core.quant import f32
 from repro_torch.core.tree import tree_map_with_path
 from repro_torch.optim import cosine_schedule, get_optimizer, param_groups
 from repro_torch.optim.grad_compress import compress_grads, init_error_feedback
-from repro_torch.optim.optimizers import Group
+from repro_torch.optim.optimizers import Group, Split
 from repro_torch.runtime import sharding as shd
 
 
@@ -123,7 +125,6 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh holds {mesh.size()} of the world's "
                              f"{dist.get_world_size()} ranks")
-    whole_grads = mesh is not None and (cfg.grad_compress or cfg.optimizer != "adamw")
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         k = cfg.microbatches
@@ -167,30 +168,24 @@ def make_train_step(model, *, peak_lr: float = 3e-4, warmup: int = 100,
             grads.append(acc[i:i + len(group.params)])
             i += len(group.params)
         at_rest = groups if mesh is None else param_groups(state.params, cfg)
-        if whole_grads:                 # the blocks -> the whole grads, on every rank
-            grads = [[_whole(g, t) for g, t in zip(gs, group.params)]
-                     for gs, group in zip(grads, at_rest)]
+        splits = None if mesh is None else _splits(at_rest, state.opt["state"], mesh)
 
         new_ef = state.ef
         if cfg.grad_compress:
-            grads, ef = compress_grads(grads, shd.gather_tree(state.ef), groups)
-            new_ef = ef if mesh is None else shd.keep_blocks(state.ef, ef)
+            ef = _local(state.ef)
+            grads, new = compress_grads(grads, ef, groups,
+                                        None if splits is None else [s.axes for s in splits])
+            if mesh is None:
+                new_ef = new
+            else:                       # this rank's blocks, kept where they rest
+                with torch.no_grad():
+                    for key, t in ef.items():
+                        t.copy_(new[key])
 
         lr = lr_fn(state.step)
-        if mesh is None or cfg.optimizer == "adamw":    # in place: AdamW is element-wise
-            blocks = grads if not whole_grads else [
-                [shd.block_of(g, t) for g, t in zip(gs, group.params)]
-                for gs, group in zip(grads, at_rest)]
-            optimizer.update(blocks,
-                             {"count": state.opt["count"], "state": _local(state.opt["state"])},
-                             [Group(g.key, _local(g.params), g.stacked) for g in at_rest], lr)
-        else:                           # couples the stack: on the whole, then kept
-            whole = shd.gather_tree(state.params)
-            opt = {"count": state.opt["count"], "state": shd.gather_tree(state.opt["state"])}
-            optimizer.update(grads, opt, param_groups(whole, cfg), lr)
-            shd.keep_blocks(state.params, whole)
-            shd.keep_blocks(state.opt["state"], opt["state"])
-        if mesh is None or whole_grads:
+        optimizer.update(grads, {"count": state.opt["count"], "state": _local(state.opt["state"])},
+                         [Group(g.key, _local(g.params), g.stacked) for g in at_rest], lr, splits)
+        if mesh is None:
             gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
                                    for gs in grads for g in gs))
         else:
@@ -237,12 +232,25 @@ def rank_rows(mesh, axes) -> tuple[int, int]:
     return groups, index
 
 
-def _whole(g: torch.Tensor, t) -> torch.Tensor:
-    """The whole grad of the param `t` at rest from this rank's block `g`."""
-    if not shd.is_sharded(t):
-        return g
-    from torch.distributed.tensor import DTensor
-    return shd.gather(DTensor.from_local(g, t.device_mesh, t.placements, run_check=False))
+def _splits(at_rest, opt_state: dict, mesh) -> list[Split]:
+    """Each group's `Split`: the axes that split each dim of its stacked
+    grad block (the at-rest param's, behind the unsplit layers dim) and of
+    each of its state leaves at rest."""
+    axes = coll.mesh_axes(mesh)
+
+    def dims(t) -> tuple[tuple, ...]:
+        per: list[tuple] = [() for _ in range(t.ndim)]
+        for a, d in shd.layout_of(t, axes):
+            if a.size > 1:
+                per[d] += (a,)
+        return tuple(per)
+
+    out = []
+    for g in at_rest:
+        grad = dims(g.params[0])
+        out.append(Split(((),) + grad if g.stacked else grad,
+                         {k: dims(t) for k, t in opt_state[g.key].items()}))
+    return out
 
 
 def _block_norm(grads, at_rest, mesh) -> torch.Tensor:

@@ -16,9 +16,11 @@ that take each path of `models.layers` / `models.moe`:
     `moe_seq_chunk` 2): wq_b / wkv_b column-parallel, the experts over
     "model", each rank's partial combine all-reduced, the latent caches
     replicated;
-  * "hybrid": zamba2-1.2b: no layer kind of its stack splits over
-    "model", so each Mamba2 layer, and its state, is gathered whole a
-    layer at a time and nothing is summed over "model".
+  * "hybrid": zamba2-1.2b: each Mamba2 layer splits its 16 SSM heads
+    over "model": in_proj's z / x / dt columns and the conv's x channels
+    selected (B and C on every rank), the SSD state split on its heads,
+    the conv state's x channels selected from its gathered channels, the
+    gated norm's squares summed over "model", out_proj row-parallel.
 On (1, 2) and (2, 2) meshes, under mitchell and karatsuba_int16 the logits
 of every step are byte-equal to those of the unmeshed steps on the same
 rows (the abs-max of a split operand spans "model", the row-parallel int32
@@ -34,8 +36,11 @@ their float32 products in another order than the unsplit layer, so the
 unmeshed steps run them in the ranks' blocks (`blocked_oracle`): a
 one-query attention block (decode) in each rank's query heads and the kv
 heads they read (the CPU's gemm rounds a product of fewer heads another
-way), and the MoE combine in each rank's experts, their partial sums added
-in rank order, as the all-reduce of two ranks adds them. Under exact the
+way), the MoE combine in each rank's experts, their partial sums added
+in rank order, as the all-reduce of two ranks adds them, and the Mamba2
+mixer between its projections in each rank's heads (the SSD einsums over
+fewer heads round another way), the gated norm's sums of squares added in
+rank order. Under exact the
 logits are within
 rtol 1e-4 / atol 1e-5 of the unmeshed steps' (that file's reference
 tolerance). The greedy tokens are equal under all three methods, and the
@@ -68,15 +73,17 @@ METHODS = ("exact", "mitchell", "karatsuba_int16")
 
 @contextlib.contextmanager
 def blocked_oracle(cfg, mesh):
-    """While active, the unmeshed steps run a one-query attention block
-    and the MoE combine in the blocks of the ranks of `mesh`'s "model"
-    axis (module docstring), where the meshed step splits them."""
-    from repro_torch.models import layers, moe
+    """While active, the unmeshed steps run a one-query attention block,
+    the MoE combine and the Mamba2 mixer in the blocks of the ranks of
+    `mesh`'s "model" axis (module docstring), where the meshed step splits
+    them."""
+    from repro_torch.core.collectives import Axis, segment_index
+    from repro_torch.models import layers, moe, ssm
     size = shd.axis_sizes(mesh)["model"]
     if size == 1 or not shd.model_parallel(cfg, mesh):
         yield
         return
-    sdpa, partial = layers._sdpa, moe._experts_partial
+    sdpa, partial, mixer = layers._sdpa, moe._experts_partial, ssm.mamba2_mixer
 
     def blocked_sdpa(q, k, v, **kw):
         hq, hkv = q.shape[2], k.shape[2]
@@ -104,11 +111,46 @@ def blocked_oracle(cfg, mesh):
             out = part if out is None else out + part
         return out
 
-    layers._sdpa, moe._experts_partial = blocked_sdpa, blocked_partial
+    def blocked_mixer(p, x, cfg, *, ssm_state=None, conv_state=None, decode=False,
+                      impl="auto"):
+        d_inner, nheads, hd, _ = ssm._dims(cfg)
+        if nheads % size:
+            return mixer(p, x, cfg, ssm_state=ssm_state, conv_state=conv_state,
+                         decode=decode, impl=impl)
+        mm, per = cfg.matmul_method, nheads // size
+        cols, chans = ssm.segments(cfg)
+        zxbcdt = layers.dense(p["in_proj"], x, method=mm, impl=impl)
+        ys, states, convs = [], [], []
+        for r in range(size):
+            rank = Axis("model", size, r, None)
+            ci, ch = segment_index(cols, rank), segment_index(chans, rank)
+            heads = slice(r * per, (r + 1) * per)
+            pr = {"conv_w": p["conv_w"][:, ch], "conv_b": p["conv_b"][ch],
+                  **{k: p[k][heads] for k in ("a_log", "dt_bias", "d_skip")}}
+            y, h, c = ssm.mixer_heads(
+                pr, zxbcdt.index_select(-1, ci), cfg, per,
+                ssm_state=None if ssm_state is None else ssm_state[:, heads],
+                conv_state=None if conv_state is None else conv_state.index_select(-1, ch),
+                decode=decode)
+            ys.append(y.to(torch.float32))
+            states.append(h)
+            convs.append(c)
+        squares = None
+        for y in ys:                    # each rank's squares, added in rank order
+            sq = (y ** 2).sum(-1, keepdim=True)
+            squares = sq if squares is None else squares + sq
+        yf = torch.cat(ys, dim=-1)
+        y = (yf * torch.rsqrt(squares / d_inner + 1e-6) * p["norm_scale"]).to(x.dtype)
+        conv = torch.cat([c[..., :per * hd] for c in convs] + [convs[0][..., per * hd:]], -1)
+        return (layers.dense(p["out_proj"], y, method=mm, impl=impl),
+                torch.cat(states, dim=1), conv)
+
+    layers._sdpa, moe._experts_partial, ssm.mamba2_mixer = \
+        blocked_sdpa, blocked_partial, blocked_mixer
     try:
         yield
     finally:
-        layers._sdpa, moe._experts_partial = sdpa, partial
+        layers._sdpa, moe._experts_partial, ssm.mamba2_mixer = sdpa, partial, mixer
 
 
 def config(case: str, method: str):
@@ -198,6 +240,7 @@ def test_tp_serve_steps_equal_the_unmeshed_steps(tmp_path, shape):
         assert torch.equal(got["tokens"], want["tokens"]), (case, method)
         assert torch.equal(got["tokens"], rows["tokens"]), (case, method)
         coll = r["collectives"]
-        # the row-parallel sums (and the embedding's over the vocab) over "model"
-        assert (coll.get("all_reduce_sum", 0) > 0) == (case != "hybrid"), (case, method, coll)
+        # the row-parallel sums (and the embedding's over the vocab, the
+        # Mamba2 norm's squares) over "model"
+        assert coll.get("all_reduce_sum", 0) > 0, (case, method, coll)
         assert coll["all_gather"] > 0, (case, method, coll)

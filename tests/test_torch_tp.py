@@ -19,10 +19,11 @@ tensor-parallel path of the layers (the last three, FAMILY_CASES, run from
     replicated), its 8 experts split over "model" (each rank running 4 on
     the replicated dispatch, their partial combines all-reduced), the
     shared expert a tensor-parallel MLP;
-  * zamba2-1.2b on (1, 2): its Mamba2 layers have no tensor-parallel
-    rule, so its rows split over "model" too (`sharding.batch_axes`), each
-    layer gathered whole over every axis, one layer at a time, each grad
-    reduce-scattered over both;
+  * zamba2-1.2b on (1, 2): its Mamba2 layers split their 16 SSM heads
+    over "model" (`models.ssm`): in_proj's z / x / dt columns and the
+    conv's x channels selected from their gathered blocks (B and C on
+    both ranks, their grads reduce-scattered back over "model"), the
+    gated norm's squares summed over "model", out_proj row-parallel;
   * llama-3.2-vision-90b on (1, 2): gated cross-attention over the image
     keys and values (the gates opened), its kv heads split over "model".
 Besides: a shard-local abs-max of a split weight or activation gives
@@ -37,7 +38,7 @@ import dataclasses
 import pytest
 import torch
 
-from test_torch_train_mesh import check_both, run_mesh, run_ranks
+from test_torch_train_mesh import check_both, port_config, run_mesh, run_ranks
 
 CASES = {
     "dense-mitchell-1x2": ("qwen2-0.5b", {"matmul_method": "mitchell"}, (1, 2)),
@@ -63,13 +64,25 @@ def check_case(tmp_path, arch: str, changes: dict, shape: tuple[int, int]) -> No
     got, ref, path = run_mesh(tmp_path, arch, changes, shape)
     check_both(got, ref, path, arch, changes)
     coll = got["collectives"]
-    tp = arch != "zamba2-1.2b"
-    # the tensor-parallel sums over "model" and the vocab-parallel
-    # logsumexp's max where the layers split over "model"; the FSDP
-    # reduce-scatters where the rows split (over "model" too without it)
+    hybrid = arch == "zamba2-1.2b"
+    # every case's layers split over "model": the tensor-parallel sums over
+    # it and the max of a split operand (the vocab-parallel logsumexp's);
+    # the FSDP reduce-scatters where the rows split, and Mamba2's selected
+    # in_proj / conv_w blocks, gathered over "model", reduce-scattered back
     assert coll["all_reduce_sum"] > 0 and coll["all_gather"] > 0, coll
-    assert (coll.get("all_reduce_max", 0) > 0) == tp, coll
-    assert (coll.get("reduce_scatter", 0) > 0) == (shape[0] > 1 or not tp), coll
+    assert coll.get("all_reduce_max", 0) > 0, coll
+    assert (coll.get("reduce_scatter", 0) > 0) == (shape[0] > 1 or hybrid), coll
+    if hybrid:
+        # a layer's forward: the norm's squares and out_proj's partial
+        # products summed over "model"; its backward: the norm's and the
+        # input's cotangents (copy_to_model); in_proj and conv_w reduce-
+        # scattered (they rest split over "model"), conv_b all-reduced;
+        # each microbatch
+        cfg = port_config(arch, changes)
+        passes = cfg.num_layers * cfg.microbatches
+        assert coll["all_reduce_sum"] >= 5 * passes, coll
+        if shape[0] == 1:
+            assert coll["reduce_scatter"] == 2 * passes, coll
 
 
 # ------------------------------------------------------------- abs-max ------

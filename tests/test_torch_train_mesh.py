@@ -348,7 +348,8 @@ def test_a_local_absmax_gives_other_integers(tmp_path):
 
 def test_adafactor_fsdp_pod_on_2x2(tmp_path):
     """nemotron-4-340b's reduced config: Adafactor (factored over the
-    stacked layers, run on the gathered group; its vr / vc held), fsdp_pod."""
+    stacked layers, run on each rank's blocks, its means and clip reduced
+    over the axes that split each leaf; its vr / vc held), fsdp_pod."""
     cfg = port_config("nemotron-4-340b", {})
     assert cfg.optimizer == "adafactor" and cfg.fsdp_pod
     got, ref, path = run_mesh(tmp_path, "nemotron-4-340b", {}, (2, 2))
