@@ -27,7 +27,14 @@ Phases, each fatal on failure:
                `karatsuba_matmul_i8` (int8 limbs, their edges -128 / 127 and
                hi + lo = -128 included) and of the wide `karatsuba_matmul`
                (limbs past int8, up to 2**20) on ragged shapes and on the
-               full-width shape below with M cut to 256 rows, and at the
+               full-width shape below with M cut to 256 rows; the wide
+               kernel's two routes (thin: a span of whole rows, 16- and
+               4-byte row chunks, K splits; digits: forced at 2, 3 and 4
+               int8 digits, beside `digit_product_plain` too) on ragged
+               shapes, limbs needing 2, 3 and 4 digits with -2**31,
+               2**31 - 1, +-128 and +-32768 placed in, against
+               `karatsuba_matmul_plain` on CPU copies, each call launching
+               the route `launch_plan` names; and at the
                hybrid and xLSTM families' edges (4 x 4096 x 8, 4 x 2048 x
                8384, 128 x 2048 x 8384) and the MoE and VLM families' (4 x
                28672 x 8192, 4 x 1536 x 24576, the tiled-route image
@@ -61,9 +68,13 @@ Phases, each fatal on failure:
                karatsuba_int16 accumulators byte-equal to the int8 oracle),
                and the card's bytes equal to the port's CPU path on the first
                images for every quantized method; the same launches as 5;
-  7. wide   -- `infer.forward` of both models calibrated at 14 bits with
-               karatsuba_int16, whose limbs pass int8 (w = 7, |hi| up to 128):
-               accumulators equal to the int8 oracle, and the wide
+  7. wide   -- `infer.forward` of both models calibrated at 14 and 16 bits
+               with karatsuba_int16 and schoolbook_int16, whose limbs pass
+               int8 (w = 7: |hi| up to 128 / 512; w = 8 at 16 bits: up to
+               256): accumulators and logits equal to the int8 oracle; each
+               limb call must launch the route the wrapper's rule and
+               `launch_plan` name for its limbs (the wide kernel's thin
+               route at all five calls, `ROUTE_LAUNCHES`), and the wide
                `karatsuba_matmul` must have been launched;
   8. scale  -- apply_filter(gaussian5, refmlm) on N=16 2048x2048 frames;
   9. tiles  -- each persistent conv kernel at each tile of the menu
@@ -225,7 +236,14 @@ Phases, each fatal on failure:
                for M = 4 .. 2048, the timings behind the plan's route cut;
                both matmul kernels at the train step's shapes (M = 1024)
                beside their plain versions, the limb kernel beside 3
-               `torch._int_mm` calls there, and
+               `torch._int_mm` calls there; the wide limb kernel at the five
+               [wide] calls on the limbs that path made and at 2048 x 896 x
+               4864 on 16-bit quantized limbs (2 digits) and full-range ones
+               (4 digits), beside its bound, its plain version and 3 / 4
+               float64 `torch.matmul` calls where those are exact, with the
+               other route, the pack step alone and, on int8 limbs at the
+               five calls, the int8 route beside the thin one ([wide-time]
+               lines); and
                `mitchell_matmul` at the VLM's tiled image projection
                (6400 x 8192 x 1024), [train] lines;
 The line before the last is a JSON object naming the seven kernels with
@@ -237,7 +255,10 @@ with `train_step_ms`, `train_step_bound_ms` and `train_step_device_ms`
 for `mitchell_matmul`, a step's calls summed at their shapes, the bound
 and the profiler's reading; for the
 matmul kernels `lm_launches`, their launches in phase 15's eighteen
-greedy runs (six LMs x three methods), and for
+greedy runs (six LMs x three methods); for `karatsuba_matmul` its
+numbers summed over the five [wide] calls of a karatsuba_int16 forward at
+14 bits, `route_launches` by route in phase 7 and `wide_calls`, the
+per-call rows; and for
 `mitchell_matmul` `decode_step_ms` and `decode_step_bound_ms`, phase 19's
 sum over a Qwen2-0.5B decode step's shapes, `lm_decode_step_device_ms`,
 phase 15's profiler reading, and `decode_step_by_arch`, the three for each
@@ -358,7 +379,22 @@ KERNEL_METHODS = ("mitchell", "mitchell_ecc1", "mitchell_ecc2", "mitchell_ecc3",
 INFER_HW = (64, 64)
 INFER_BATCH = 256
 INFER_CPU_BATCH = 4
-WIDE_NBITS = 14
+WIDE_NBITS = (14, 16)          # the [wide] path's calibrations: limbs past int8
+WIDE_METHODS = ("karatsuba_int16", "schoolbook_int16")
+# the [wide] path's limb calls of one forward, in order, by model
+WIDE_CALLS = {"cnn": ("cnn conv1", "cnn conv2", "cnn dense"),
+              "mlp": ("mlp dense1", "mlp dense2")}
+# the wide kernel's ragged parity shapes: the thin route (one span of whole
+# rows; 16-byte and 4-byte row chunks; K splits at few row tiles) and the
+# digit route
+WIDE_THIN_SHAPES = ((5, 19, 11), (1000, 9, 4), (333, 36, 8), (513, 18, 3), (37, 1001, 5),
+                    (256, 2048, 4), (300, 2100, 32))
+WIDE_DIGIT_SHAPES = ((37, 300, 129), (5, 19, 40), (70, 130, 65))
+# limb bounds that need 2, 3 and 4 balanced int8 digits in both modes, and
+# the values placed in where they fit
+WIDE_DIGIT_BOUNDS = ((2, 16000), (3, 4_000_000), (4, 1 << 31))
+WIDE_EDGES = (-(1 << 31), (1 << 31) - 1, 128, -128, 32768, -32768)
+WIDE_Q16 = (1 << 16) - 1        # MM_SHAPE's 2-digit limbs: q in +-WIDE_Q16
 
 
 def log(*parts) -> None:
@@ -3619,13 +3655,82 @@ def mitchell_route_parity(max_err: dict, failures: list, device: torch.device) -
     return checked
 
 
+def wide_limbs(shape: tuple[int, int, int], bound: int, seed: int,
+               device: torch.device) -> list[torch.Tensor]:
+    """Seeded limbs a_hi, a_lo (M, K), b_hi, b_lo (K, N) in [-bound, bound)
+    on the card, the WIDE_EDGES that fit placed in: A's first row, a_lo's
+    last row backwards, B's first column, b_lo's last column backwards."""
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    out = [rng.integers(-bound, bound, s, dtype=np.int64) for s in ((m, k), (m, k), (k, n), (k, n))]
+    for j, v in enumerate([v for v in WIDE_EDGES if -bound <= v < bound][:k]):
+        out[0][0, j], out[1][m - 1, k - 1 - j] = v, v
+        out[2][j, 0], out[3][k - 1 - j, n - 1] = v, v
+    return [torch.from_numpy(v.astype(np.int32)).to(device) for v in out]
+
+
+def wide_route_parity(max_err: dict, failures: list, device: torch.device) -> int:
+    """The wide kernel through `karatsuba_matmul_kernel` at WIDE_THIN_SHAPES
+    and WIDE_DIGIT_SHAPES on limbs needing 2, 3 and 4 int8 digits (the
+    int32 extremes among them), both modes, against `karatsuba_matmul_plain`
+    on CPU copies (its float64 route on the card is not exact past 2**53):
+    each call must launch the route `launch_plan` names for the shape and
+    the limbs' digit count. The digit route is also forced at every digit
+    count from the limbs' own to 4, against the plain version and against
+    `digit_product_plain` on the card. Both routes and all three digit
+    counts must have run. -> the number of comparisons."""
+    from repro_torch.kernels import karatsuba_matmul as km
+
+    checked = 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    routes, counts = set(), set()
+    for i, shape in enumerate(WIDE_THIN_SHAPES + WIDE_DIGIT_SHAPES):
+        for digits, bound in WIDE_DIGIT_BOUNDS:
+            limbs = wide_limbs(shape, bound, 120 + 4 * i + digits, device)
+            cpu = [t.cpu() for t in limbs]
+            for kar in (True, False):
+                what = f"{shape} in [-{bound}, {bound}) karatsuba={kar}"
+                if km.limb_digits(*limbs, karatsuba=kar) != digits:
+                    failures.append(f"karatsuba_matmul {what}: not {digits} digits")
+                plan = km.launch_plan(*shape, digits, sms)
+                before = dict(km.ROUTE_LAUNCHES)
+                got = km.karatsuba_matmul_kernel(*limbs, karatsuba=kar)
+                ran = {r: c - before[r] for r, c in km.ROUTE_LAUNCHES.items() if c != before[r]}
+                if ran != {plan.route: 1}:
+                    failures.append(f"karatsuba_matmul {what}: launched {ran}, the plan "
+                                    f"names {plan.route}")
+                routes.add(plan.route)
+                want = km.karatsuba_matmul_plain(*cpu, karatsuba=kar)
+                for part, g, w in zip(("hh", "mid", "ll"), got, want):
+                    check_equal(max_err, failures, "karatsuba_matmul", g.cpu(), w,
+                                f"{part} {what} ({plan})")
+                checked += 1
+                for forced in range(digits, 5):
+                    plan = km.route_plan("digits", *shape, forced, sms)
+                    got = km.run_plan(*limbs, plan, karatsuba=kar)
+                    plain = km.digit_product_plain(*limbs, karatsuba=kar, digits=forced)
+                    for part, g, w, d in zip(("hh", "mid", "ll"), got, want, plain):
+                        check_equal(max_err, failures, "karatsuba_matmul", g.cpu(), w,
+                                    f"{part} {what} forced {plan}")
+                        check_equal(max_err, failures, "karatsuba_matmul", g, d,
+                                    f"{part} {what} forced {plan} vs digit_product_plain")
+                    counts.add(forced)
+                    checked += 1
+        log(f"[parity] karatsuba_matmul {shape}: {km.launch_plan(*shape, 2, sms)}")
+    if routes != {"thin", "digits"} or counts != {2, 3, 4}:
+        failures.append(f"karatsuba_matmul: routes {routes}, digit counts {counts} ran")
+    return checked
+
+
 def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
     """The matmul kernels against their plain versions on the same CUDA
     tensors: every LNS variant; both limb modes on int8 limbs (the int8
     kernel), on limbs just past int8 and on limbs up to 2**20 (the wide
     kernel), on ragged shapes and at the full-width shape with M cut to
     MM_PLAIN_ROWS. Each limb call must launch the kernel that the wrapper's
-    rule (`select_route`) names for its limbs."""
+    rule (`select_route`) names for its limbs, and a wide call the route
+    that `launch_plan` names; then the wide kernel's routes and digit
+    counts (`wide_route_parity`)."""
     from repro_torch.kernels import karatsuba_matmul as km
     from repro_torch.kernels import karatsuba_matmul_i8 as i8
     from repro_torch.kernels import mitchell_matmul as mm
@@ -3633,17 +3738,25 @@ def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
     failures: list[str] = []
     checked = 0
     m, k, n = MM_SHAPE
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
 
     def limb_check(limbs, kar: bool, what: str, route: str) -> None:
         nonlocal checked
         if i8.select_route(*limbs, karatsuba=kar) != route:
             failures.append(f"{what}: the rule does not pick {route}")
-        before = matmul_launches()
+        before, routes = matmul_launches(), dict(km.ROUTE_LAUNCHES)
         got = km.karatsuba_matmul_kernel(*limbs, karatsuba=kar)
         want = km.karatsuba_matmul_plain(*limbs, karatsuba=kar)
         ran = [name for name, count in matmul_launches().items() if count != before[name]]
         if ran != [route]:
             failures.append(f"{what}: launched {ran}, expected [{route}]")
+        if route == "karatsuba_matmul":
+            digits = km.limb_digits(*limbs, karatsuba=kar)
+            plan = km.launch_plan(limbs[0].shape[0], limbs[0].shape[1], limbs[2].shape[1],
+                                  digits, sms)
+            ran = {r: c - routes[r] for r, c in km.ROUTE_LAUNCHES.items() if c != routes[r]}
+            if ran != {plan.route: 1}:
+                failures.append(f"{what}: wide routes {ran}, the plan names {plan}")
         for part, g, w in zip(("hh", "mid", "ll"), got, want):
             check_equal(max_err, failures, route, g, w, f"karatsuba={kar} {part} {what}")
         checked += 1
@@ -3710,6 +3823,7 @@ def phase_matmul_parity(max_err: dict, device: torch.device) -> None:
                         f"{kw} {shape} full int32 range")
             checked += 1
     checked += mitchell_route_parity(max_err, failures, device)
+    checked += wide_route_parity(max_err, failures, device)
     torch.cuda.synchronize()
     log(f"[parity] {checked} matmul kernel/plain comparisons, max |err| "
         f"{ {name: max_err[name] for name in MATMUL_KERNELS} }")
@@ -3838,33 +3952,79 @@ def phase_infer_main(device: torch.device) -> dict[str, int]:
     return launches
 
 
-def phase_wide_main(device: torch.device) -> dict[str, int]:
-    """`infer.forward` with karatsuba_int16 on both models calibrated at
-    WIDE_NBITS bits, where the w = 7 limbs pass int8; -> launches by kernel."""
+def phase_wide_main(device: torch.device) -> tuple[dict[str, int], dict[str, int], dict]:
+    """`infer.forward` on both models calibrated at each of WIDE_NBITS bits,
+    with each of WIDE_METHODS, whose limbs pass int8 (but schoolbook's at
+    14 bits): accumulators and logits equal to the int8 oracle. Each limb
+    call (`infer.runner`'s, wrapped) must launch what the wrapper's rule and
+    `launch_plan` name for its limbs: the int8 kernel, or one launch of the
+    wide kernel's route. -> (launches by kernel, the wide kernel's launches
+    by route, and CPU copies of the limbs of the karatsuba_int16 calls at 14
+    bits and the schoolbook_int16 calls at 16, keyed (call, karatsuba), for
+    phase_matmul_times)."""
     from repro_torch.data.images import inference_batch
-    from repro_torch.infer import MODELS, calibrate, forward, init_params
+    from repro_torch.infer import MODELS, calibrate, forward, init_params, runner
+    from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import karatsuba_matmul_i8 as i8
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     x_cal = inference_batch(4, INFER_HW, seed=100)
     x = inference_batch(INFER_BATCH, INFER_HW, seed=0)
+    real = runner.karatsuba_matmul_kernel
+    calls: list[tuple] = []          # (method, nbits, model, shape, expected, ran)
+    kept: dict[tuple[str, bool], tuple] = {}
+    context: dict = {}
+
+    def counts() -> dict[str, int]:
+        return {**km.ROUTE_LAUNCHES, i8.KERNEL: i8.LAUNCHES[i8.KERNEL]}
+
+    def checked_call(a_hi, a_lo, b_hi, b_lo, *, karatsuba=True):
+        limbs = (a_hi, a_lo, b_hi, b_lo)
+        shape = (a_hi.shape[0], a_hi.shape[1], b_hi.shape[1])
+        digits = km.limb_digits(*limbs, karatsuba=karatsuba)
+        want = i8.KERNEL if digits == 1 else km.launch_plan(*shape, digits, sms).route
+        before = counts()
+        out = real(*limbs, karatsuba=karatsuba)
+        ran = [r for r, c in counts().items() if c != before[r]]
+        method, nbits, model = context["key"]
+        calls.append((method, nbits, model, shape, want, ran))
+        if (method, nbits) in (("karatsuba_int16", 14), ("schoolbook_int16", 16)):
+            name = WIDE_CALLS[model][sum(1 for c in calls if c[:3] == context["key"]) - 1]
+            kept[(name, karatsuba)] = tuple(t.cpu() for t in limbs)
+        return out
+
     torch.cuda.synchronize()
     reset_matmul_launches()
     t0 = time.perf_counter()
-    for model in ("cnn", "mlp"):
-        graph = MODELS[model](INFER_HW)
-        cal = calibrate(graph, init_params(graph, seed=0), x_cal, nbits=WIDE_NBITS,
-                        device=device)
-        o_logits, o_accs = forward(cal, x, "int8", collect=True)
-        logits, accs = forward(cal, x, "karatsuba_int16", collect=True)
-        assert all(torch.equal(a, o) for a, o in zip(accs, o_accs)), \
-            f"{model} nbits={WIDE_NBITS}: karatsuba_int16 accumulators != int8 oracle"
-        assert torch.equal(logits, o_logits), f"{model} nbits={WIDE_NBITS}: logits"
+    runner.karatsuba_matmul_kernel = checked_call
+    try:
+        for nbits in WIDE_NBITS:
+            for model in ("cnn", "mlp"):
+                graph = MODELS[model](INFER_HW)
+                cal = calibrate(graph, init_params(graph, seed=0), x_cal, nbits=nbits,
+                                device=device)
+                o_logits, o_accs = forward(cal, x, "int8", collect=True)
+                for method in WIDE_METHODS:
+                    context["key"] = (method, nbits, model)
+                    logits, accs = forward(cal, x, method, collect=True)
+                    assert all(torch.equal(a, o) for a, o in zip(accs, o_accs)), \
+                        f"{model} nbits={nbits}: {method} accumulators != int8 oracle"
+                    assert torch.equal(logits, o_logits), f"{model} nbits={nbits}: {method} logits"
+    finally:
+        runner.karatsuba_matmul_kernel = real
     torch.cuda.synchronize()
-    launches = matmul_launches()
-    log(f"[wide] cnn + mlp at nbits={WIDE_NBITS}, karatsuba_int16 == int8 oracle in "
-        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
-    assert launches["karatsuba_matmul"] > 0, \
-        f"the wide limb kernel never launched on the wide path: {launches}"
-    return launches
+    launches, routes = matmul_launches(), dict(km.ROUTE_LAUNCHES)
+    log(f"[wide] cnn + mlp at nbits={WIDE_NBITS} x {WIDE_METHODS} == int8 oracle in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}, wide routes {routes}")
+    for method, nbits, model, shape, want, ran in calls:
+        log(f"[wide] {method} nbits={nbits} {model} {shape}: {ran} (expected {want})")
+    wrong = [c for c in calls if c[5] != [c[4]]]
+    assert not wrong, f"limb calls launched other than their route: {wrong}"
+    assert len(calls) == len(WIDE_NBITS) * len(WIDE_METHODS) * 5, f"{len(calls)} limb calls"
+    assert launches["karatsuba_matmul"] > 0 and routes["thin"] > 0, \
+        f"the wide limb kernel's thin route never launched on the wide path: {launches}"
+    assert len(kept) == 10, sorted(kept)
+    return launches, routes, kept
 
 
 def lns_ops_per_product(num_ecc: int, case_split: bool) -> int:
@@ -3948,14 +4108,14 @@ def mitchell_lm_times(int32_ops_per_s: float, device: torch.device) -> dict[tupl
     return results
 
 
-def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
-                       int32_ops_per_s: float) -> dict[tuple, dict]:
+def phase_matmul_times(x: torch.Tensor, w: torch.Tensor, int32_ops_per_s: float,
+                       wide_kept: dict) -> dict[tuple, dict]:
     """Each matmul kernel at the full-width shape on the operands the main
     path quantized, beside its plain version, its bound and, for the limb
     kernels, torch._int_mm on the int8 limbs (B row-major as the limbs lie,
     and column-major, cuBLAS's faster layout). The int8 kernel is timed
     through the wrapper (pack, range-check sync, product) and its two steps
-    apart; the wide kernel on the same limbs."""
+    apart; then the wide kernel (`wide_times`)."""
     from repro_torch.core.quant import quantize_limbs, quantize_magnitude
     from repro_torch.kernels import karatsuba_matmul as km
     from repro_torch.kernels import karatsuba_matmul_i8 as km8
@@ -4026,11 +4186,112 @@ def phase_matmul_times(x: torch.Tensor, w: torch.Tensor,
                **common}
         results[("karatsuba_matmul_i8", kar)] = row
         log(json.dumps(row))
-        row = {"kernel": "karatsuba_matmul (wide, on the same int8-valued limbs)",
-               "kernel_ms": time_ms(lambda: km.karatsuba_matmul_wide(*limbs, karatsuba=kar), 10),
-               **common}
-        results[("karatsuba_matmul", kar)] = row
-        log(json.dumps(row))
+    results.update(wide_times(wide_kept, x, int32_ops_per_s))
+    return results
+
+
+def wide_bound(shape: tuple[int, int, int], karatsuba: bool, plan,
+               int32_ops_per_s: float) -> tuple[float, str]:
+    """(bound ms, what bounds it) of one wide call: the larger of its bytes
+    (four int32 limb arrays in, three int32 arrays out) over the memory rate
+    and its work: on the thin route one multiply-add on the INT32 lanes per
+    partial product (3 or 4 a (m, k, n)), on the digit route 2 int8
+    operations per digit pair and partial product at the int8 rate."""
+    m, k, n = shape
+    passes = 3 if karatsuba else 4
+    bytes_ms = 4 * (2 * m * k + 2 * k * n + 3 * m * n) / HBM_BYTES_PER_S * 1e3
+    if plan.route == "thin":
+        ops_ms = passes * m * k * n / int32_ops_per_s * 1e3
+    else:
+        ops_ms = passes * plan.pairs() * 2 * m * k * n / INT8_OPS_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def float64_library(limbs, karatsuba: bool):
+    """3 (Karatsuba) or 4 float64 torch.matmul calls on the limbs cast
+    beforehand, the same partial sums, if they are exact (every partial sum
+    below 2**53: K max|a| max|b|); -> (the call or None, what it is)."""
+    ah, al, bh, bl = (t.to(torch.float64) for t in limbs)
+    pairs = [(ah, bh), (al, bl)]
+    pairs += [(ah + al, bh + bl)] if karatsuba else [(ah, bl), (al, bh)]
+    k = ah.shape[1]
+    worst = max(k * float(a.abs().max()) * float(b.abs().max()) for a, b in pairs)
+    if worst >= 2.0 ** 53:
+        return None, f"none: K max|a| max|b| = {worst:.3g} >= 2**53, float64 not exact"
+    return (lambda: [a @ b for a, b in pairs]), (
+        f"{len(pairs)} float64 torch.matmul on the limbs cast beforehand")
+
+
+def wide_times(kept: dict, x: torch.Tensor, int32_ops_per_s: float) -> dict[tuple, dict]:
+    """The wide limb kernel at the five [wide] calls, on the limbs that path
+    made (karatsuba_int16 at 14 bits, schoolbook_int16 at 16), and at
+    MM_SHAPE on 2-digit limbs (the main path's x and a seeded B, quantized
+    to +-WIDE_Q16) and full-range int32 limbs (4 digits): device ms of the
+    route `launch_plan` names (10 calls queued while the card is held) and
+    ms of the wrapper (pack, sync, route; CUDA events), the pack step alone,
+    the other route where it runs (the threshold THIN_MAX_N), the plain
+    version, the bound and the float64 library. At the five calls also the
+    same shapes on int8 limbs (the limbs clamped to [-64, 63]): the thin
+    route beside the int8 route the 8-bit infer path takes there (recorded,
+    not routed). [wide-time] lines."""
+    from repro_torch.core.quant import balanced_limbs
+    from repro_torch.kernels import karatsuba_matmul as km
+    from repro_torch.kernels import karatsuba_matmul_i8 as i8
+
+    device = x.device
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    m, k, n = MM_SHAPE
+    rng = np.random.default_rng(29)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(device)
+    cases = [((name, kar), tuple(t.to(device) for t in limbs), True)
+             for (name, kar), limbs in kept.items()]
+    for kar in (True, False):
+        big = []
+        for t in (x, w):
+            q = torch.round(t / (float(t.abs().max()) / WIDE_Q16)).to(torch.int32)
+            big += list(balanced_limbs(q, 7 if kar else 8))
+        cases.append((("2048x896x4864 q16", kar), tuple(big), False))
+        cases.append((("2048x896x4864 full", kar),
+                      tuple(wide_limbs(MM_SHAPE, 1 << 31, 30 + kar, device)), False))
+    results = {}
+    for (name, kar), limbs, on_path in cases:
+        shape = (limbs[0].shape[0], limbs[0].shape[1], limbs[2].shape[1])
+        digits = km.limb_digits(*limbs, karatsuba=kar)
+        plan = km.launch_plan(*shape, digits, sms)
+        bound, by = wide_bound(shape, kar, plan, int32_ops_per_s)
+        library, what = float64_library(limbs, kar)
+        plain = km.digit_product_plain if digits == 4 else km.karatsuba_matmul_plain
+        row = {"kernel": "karatsuba_matmul", "call": name, "shape": list(shape),
+               "karatsuba": kar, "digits": digits, "plan": str(plan),
+               "device_ms": time_ms_batched(lambda: km.run_plan(*limbs, plan, karatsuba=kar)),
+               "call_ms": time_ms(lambda: km.karatsuba_matmul_kernel(*limbs, karatsuba=kar), 10),
+               "pack_device_ms": time_ms_batched(
+                   lambda: i8.pack_async(*limbs, karatsuba=kar)),
+               # past 2**53 the float64 plain route is not exact: the digit route's
+               "plain_ms": time_ms(lambda: plain(*limbs, karatsuba=kar), 3, warmup=1),
+               "plain": plain.__name__, "bound_ms": bound, "bound_by": by,
+               "library_ms": time_ms(library, 10) if library else None, "library": what}
+        for other in ("thin", "digits"):
+            if other != plan.route and (other == "digits" or shape[2] <= km.THIN_MAX_N):
+                alt = km.route_plan(other, *shape, digits, sms)
+                row[f"{other}_device_ms"] = time_ms_batched(
+                    lambda: km.run_plan(*limbs, alt, karatsuba=kar))
+        if on_path:
+            l8 = tuple(t.clamp(-64, 63) for t in limbs)
+            packed = i8.pack(*l8, karatsuba=kar)
+            assert packed is not None
+            thin = km.route_plan("thin", *shape, 1, sms)
+            row["int8_limbs"] = {
+                "thin_device_ms": time_ms_batched(lambda: km.run_plan(*l8, thin, karatsuba=kar)),
+                "int8_call_ms": time_ms(lambda: km.karatsuba_matmul_kernel(*l8, karatsuba=kar),
+                                        10),
+                "int8_pack_device_ms": time_ms_batched(lambda: i8.pack_async(*l8, karatsuba=kar)),
+                "int8_product_device_ms": time_ms_batched(lambda: i8.product(packed))}
+            del l8, packed
+        results[("karatsuba_matmul", name, kar)] = row
+        log("[wide-time] " + json.dumps(row))
+        del library
+        torch.cuda.empty_cache()
     return results
 
 
@@ -4073,7 +4334,9 @@ def main() -> int:
     stamp(t_start, 'phase_infer_main')
     for name in ("mitchell_matmul", "karatsuba_matmul_i8"):
         launches[name] = mm_launches[name] + infer_launches[name]
-    launches["karatsuba_matmul"] = phase_wide_main(device)["karatsuba_matmul"]
+    wide_launches, wide_routes, wide_kept = phase_wide_main(device)
+    launches["karatsuba_matmul"] = wide_launches["karatsuba_matmul"]
+    stamp(t_start, 'phase_wide_main')
     scale_frames = phase_scale(device)
     stamp(t_start, 'phase_scale')
     inputs = {MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames}
@@ -4100,7 +4363,8 @@ def main() -> int:
     times = phase_times({MAIN_SHAPE: main_frames, SCALE_SHAPE: scale_frames},
                         int32_ops_per_s)
     stamp(t_start, 'phase_times')
-    mm_times = phase_matmul_times(x, w, int32_ops_per_s)
+    mm_times = phase_matmul_times(x, w, int32_ops_per_s, wide_kept)
+    del wide_kept
     stamp(t_start, 'phase_matmul_times')
     train_times = train_kernel_times(int32_ops_per_s, device, max_err)["train_step"]
     stamp(t_start, 'train_kernel_times')
@@ -4133,8 +4397,19 @@ def main() -> int:
                                in tile_times.items() if k == name and shape == SCALE_SHAPE
                                and row["filter"] in ("fig9", "gaussian5")},
         })
+    wide_rows = [mm_times[("karatsuba_matmul", name, True)]
+                 for names in WIDE_CALLS.values() for name in names]
+    libs = [row["library_ms"] for row in wide_rows]
+    mm_times["karatsuba_matmul"] = {
+        "kernel_ms": sum(row["device_ms"] for row in wide_rows),
+        "plain_ms": sum(row["plain_ms"] for row in wide_rows),
+        "bound_ms": sum(row["bound_ms"] for row in wide_rows),
+        # what bounds the rows that hold most of the summed bound
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            r["bound_ms"] for r in wide_rows if r["bound_by"] == by)),
+        "library_ms": None if None in libs else sum(libs)}
     for name, key in (("mitchell_matmul", ("mitchell_matmul", 0, True)),
-                      ("karatsuba_matmul", ("karatsuba_matmul", True)),
+                      ("karatsuba_matmul", "karatsuba_matmul"),
                       ("karatsuba_matmul_i8", ("karatsuba_matmul_i8", True))):
         t = mm_times[key]
         kernels.append({
@@ -4155,6 +4430,13 @@ def main() -> int:
                 "train_step_bound_ms": train_times["mitchell_bound_ms"],
                 "train_step_device_ms": train_mitchell_ms}
                if name == "mitchell_matmul" else {}),
+            **({"shape": "the five [wide] calls of a karatsuba_int16 forward at 14 bits, "
+                         "summed (device ms)",
+                "route_launches": wide_routes,
+                "wide_calls": [row for key, row in mm_times.items()
+                               if isinstance(key, tuple) and len(key) == 3
+                               and key[0] == "karatsuba_matmul"]}
+               if name == "karatsuba_matmul" else {}),
         })
     log(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s (host clock)")
     log(smi)                    # the card's name and power limit, again at the end

@@ -6,7 +6,8 @@
 //   mid = a_hi @ b_lo + a_lo @ b_hi                     (karatsuba = 0, 4 products)
 // every sum wrapping like int32, so the outputs are bit-identical to the
 // reference's. It takes limbs in [-128, 127] (and, for Karatsuba, hi + lo in
-// [-128, 127] too); wider limbs go to karatsuba_matmul.cu on the CUDA cores.
+// [-128, 127] too); wider limbs go to karatsuba_matmul.cu (its thin route on
+// the CUDA cores, or its digit route on the same int8 mma.sync).
 //
 // Replaces the Pallas kernel `karatsuba_matmul_kernel`
 // (src/repro/kernels/karatsuba_matmul.py:122; body `_block_products`, :42)
@@ -23,8 +24,17 @@
 //     (2, N, Kp) with K contiguous, Kp = K rounded up to kBK with zeros, so
 //     the product reads 4x fewer bytes from L2 than int32 tiles would and
 //     its K loop has no ragged edge. The pass also range-checks every limb
-//     (and hi + lo for Karatsuba) and sets *flag if one does not fit; the
-//     caller reads the flag (one host sync) before it launches step 2.
+//     (and hi + lo for Karatsuba) and sets bit 0 of *flag if one does not
+//     fit, and bits 1 / 2 if an operand of the wide route's products (a
+//     limb, or for Karatsuba the wrapped hi + lo) needs 3 / 4 balanced int8
+//     digits; the caller reads the flag (one host sync) before it launches
+//     step 2 or the wide route. Only a thread whose limbs do not fit works
+//     out their digit count, and it raises its bits with an atomicOr only
+//     when the flag lacks them (no atomic storm on wide limbs); a thread
+//     whose limbs fit runs the check alone, as before the digit count. The
+//     copies are written in any case: skipping them once the flag is up
+//     saved 0.014 of 0.35 ms at M = 2**20, K = 9 on the H100 but made every
+//     thread wait on the flag (PERF.md §6).
 //  2. Product (`i8_product_kernel`). A 64 x 64 output tile a block, 4 warps
 //     of 32 x 32, two blocks an SM so that one's epilogue overlaps the
 //     other's loads; cp.async with 16-byte copies fills a 3-stage ring of
@@ -55,6 +65,30 @@ __device__ __forceinline__ bool limb_out_of_range(int32_t hi, int32_t lo, int ka
   return bad || (karatsuba && (hi + lo < -128 || hi + lo > 127));
 }
 
+// Bits 1 and 2 of the flag for one operand of the wide route's products:
+// v needs 3 balanced int8 digits (past [-128 * 257, 127 * 257]), or 4 (past
+// [-128 * 65793, 127 * 65793]).
+__device__ __forceinline__ int width_bits(int32_t v) {
+  return (v < -32896 || v > 32639 ? 2 : 0) | (v < -8421504 || v > 8355711 ? 4 : 0);
+}
+
+// For a thread whose 4 limb pairs do not all fit: bit 0 and the width bits
+// of each pair's operands (for Karatsuba the wrapped hi + lo too), ORed
+// into *flag when it lacks some of them (a plain load: a stale value only
+// costs an atomic).
+__device__ __forceinline__ void raise_flag(int* flag, const int32_t (&h)[4],
+                                           const int32_t (&l)[4], int karatsuba) {
+  int bits = 1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bits |= width_bits(h[j]) | width_bits(l[j]);
+    if (karatsuba)
+      bits |= width_bits(static_cast<int32_t>(static_cast<uint32_t>(h[j]) +
+                                              static_cast<uint32_t>(l[j])));
+  }
+  if (bits & ~*flag) atomicOr(flag, bits);
+}
+
 __device__ __forceinline__ uint32_t byte_of(int32_t v, int j) {
   return (static_cast<uint32_t>(v) & 0xffu) << (8 * j);
 }
@@ -70,24 +104,25 @@ __global__ void pack_rows(const int32_t* __restrict__ hi, const int32_t* __restr
   const int r = static_cast<int>(idx / quads);
   const int c0 = static_cast<int>(idx % quads) * 4;
   uint32_t wh = 0u, wl = 0u;
+  int32_t h[4], l[4];
   bool bad = false;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int c = c0 + j;
-    int32_t h = 0, l = 0;
+    h[j] = l[j] = 0;
     if (c < k) {
       const size_t o = static_cast<size_t>(r) * k + c;
-      h = __ldg(&hi[o]);
-      l = __ldg(&lo[o]);
+      h[j] = __ldg(&hi[o]);
+      l[j] = __ldg(&lo[o]);
     }
-    bad |= limb_out_of_range(h, l, karatsuba);
-    wh |= byte_of(h, j);
-    wl |= byte_of(l, j);
+    bad |= limb_out_of_range(h[j], l[j], karatsuba);
+    wh |= byte_of(h[j], j);
+    wl |= byte_of(l[j], j);
   }
   const size_t o = (static_cast<size_t>(r) * kp + c0) / 4;
   reinterpret_cast<uint32_t*>(out)[o] = wh;
   reinterpret_cast<uint32_t*>(out + static_cast<size_t>(rows) * kp)[o] = wl;
-  if (bad) atomicOr(flag, 1);
+  if (bad) raise_flag(flag, h, l, karatsuba);
 }
 
 // A (k, cols) int32 limb pair -> transposed (2, cols, kp) int8, zeros for
@@ -98,20 +133,22 @@ __global__ void pack_cols_t(const int32_t* __restrict__ hi, const int32_t* __res
   __shared__ int32_t th[32][33], tl[32][33];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int k0 = blockIdx.y * 32, n0 = blockIdx.x * 32;
+  int32_t h[4], l[4];
   bool bad = false;
-  for (int i = ty; i < 32; i += 8) {
-    const int r = k0 + i, c = n0 + tx;
-    int32_t h = 0, l = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = ty + 8 * j, r = k0 + i, c = n0 + tx;
+    h[j] = l[j] = 0;
     if (r < k && c < cols) {
       const size_t o = static_cast<size_t>(r) * cols + c;
-      h = __ldg(&hi[o]);
-      l = __ldg(&lo[o]);
+      h[j] = __ldg(&hi[o]);
+      l[j] = __ldg(&lo[o]);
     }
-    bad |= limb_out_of_range(h, l, karatsuba);
-    th[i][tx] = h;
-    tl[i][tx] = l;
+    bad |= limb_out_of_range(h[j], l[j], karatsuba);
+    th[i][tx] = h[j];
+    tl[i][tx] = l[j];
   }
-  if (bad) atomicOr(flag, 1);
+  if (bad) raise_flag(flag, h, l, karatsuba);
   __syncthreads();
   const int tid = ty * 32 + tx;
   const int nl = tid / 8, q = tid % 8;             // column of the tile, K quad
@@ -315,8 +352,9 @@ using namespace repro;
 
 // Step 1. a_hi, a_lo: device (m, k) int32; b_hi, b_lo: device (k, n) int32;
 // a8: device (2, m, kp) int8; b8: device (2, n, kp) int8, kp = k rounded up
-// to kBK; flag: a device int32, set to 0 and then to 1 if a limb (or a
-// Karatsuba sum) falls outside int8.
+// to kBK; flag: a device int32, set to 0, then bit 0 set if a limb (or a
+// Karatsuba sum) falls outside int8 and bits 1 / 2 if an operand of the wide
+// route needs 3 / 4 int8 digits.
 extern "C" int karatsuba_i8_pack(const int32_t* a_hi, const int32_t* a_lo,
                                  const int32_t* b_hi, const int32_t* b_lo,
                                  int8_t* a8, int8_t* b8, int* flag, int m, int k,

@@ -5,8 +5,11 @@ and the rule that picks it.
 int32 limbs. On CUDA tensors it first runs this module's pack step, which
 casts the limbs to int8 in the layouts `mma.sync` wants and checks that
 they fit (`select_route`'s rule); one host sync reads the check. Limbs that
-fit go to `karatsuba_matmul_i8`; wider ones to the CUDA-core kernel
-`karatsuba_matmul`. Both give the same bytes as `karatsuba_matmul_plain`.
+fit go to `karatsuba_matmul_i8`; wider ones to the wide kernel
+`karatsuba_matmul` (its thin or digit route), which reads the digit count
+it needs from the same flag (`flag_digits`; the plain mirror is
+`karatsuba_matmul.limb_digits`). Both give the same bytes as
+`karatsuba_matmul_plain`.
 
 The rule: every limb in [-128, 127], and for Karatsuba every hi + lo in
 [-128, 127] too (its middle product multiplies the sums). `quantize_limbs`
@@ -85,8 +88,9 @@ def pack_async(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
                b_lo: torch.Tensor, *,
                karatsuba: bool) -> tuple[PackedLimbs, torch.Tensor]:
     """Launch the pack step on contiguous (M, K), (K, N) int32 CUDA limbs:
-    int8 copies with K padded to a multiple of 128, and a one-element device flag that
-    turns 1 if a limb does not fit. Nothing waits for it."""
+    int8 copies with K padded to a multiple of 128, and a one-element device
+    flag that turns nonzero if a limb does not fit (`flag_digits` reads
+    it). Nothing waits for it."""
     m, k = a_hi.shape
     n = b_hi.shape[1]
     kp = -(-k // _K_ALIGN) * _K_ALIGN
@@ -104,14 +108,29 @@ def pack_async(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
     return PackedLimbs(a8, b8, m, n, karatsuba), flag
 
 
-def pack(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
-         b_lo: torch.Tensor, *, karatsuba: bool) -> PackedLimbs | None:
-    """`pack_async`, then the range check read with one host sync; None if
-    the limbs do not fit int8."""
+def flag_digits(flag: int) -> int:
+    """The digit count the pack step's flag names: 1 when the limbs fit
+    int8 (flag 0), else the balanced int8 digits the widest operand of the
+    wide route's products needs: 2, 3 (bit 1) or 4 (bit 2)."""
+    return 1 if flag == 0 else 4 if flag & 4 else 3 if flag & 2 else 2
+
+
+def pack_route(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+               b_lo: torch.Tensor, *, karatsuba: bool) -> tuple[PackedLimbs | None, int]:
+    """`pack_async`, then its flag read with one host sync: (the packed
+    limbs, 1) when they fit int8, else (None, the digit count of
+    `flag_digits`)."""
     packed, flag = pack_async(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)
     if is_fake(flag):
-        return packed
-    return None if int(flag.item()) else packed
+        return packed, 1
+    digits = flag_digits(int(flag.item()))
+    return (packed if digits == 1 else None), digits
+
+
+def pack(a_hi: torch.Tensor, a_lo: torch.Tensor, b_hi: torch.Tensor,
+         b_lo: torch.Tensor, *, karatsuba: bool) -> PackedLimbs | None:
+    """`pack_route`'s packed limbs; None if the limbs do not fit int8."""
+    return pack_route(a_hi, a_lo, b_hi, b_lo, karatsuba=karatsuba)[0]
 
 
 def product(packed: PackedLimbs) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -130,6 +149,6 @@ def product(packed: PackedLimbs) -> tuple[torch.Tensor, torch.Tensor, torch.Tens
     return tuple(outs)
 
 
-__all__ = ["KERNEL", "LAUNCHES", "PackedLimbs", "WIDE_KERNEL",
-           "limbs_fit_int8", "pack", "pack_async", "product", "reset_launches",
-           "select_route"]
+__all__ = ["KERNEL", "LAUNCHES", "PackedLimbs", "WIDE_KERNEL", "flag_digits",
+           "limbs_fit_int8", "pack", "pack_async", "pack_route", "product",
+           "reset_launches", "select_route"]

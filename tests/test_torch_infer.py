@@ -24,6 +24,8 @@ import repro.infer as J
 import repro_torch.infer as T
 from repro.data.images import inference_batch
 from repro_torch.convert import from_reference_model
+from repro_torch.core.quant import balanced_limbs
+from repro_torch.kernels.karatsuba_matmul_i8 import limbs_fit_int8
 from repro_torch.data.images import inference_batch as t_inference_batch
 
 # The suite runs in several worker processes; one torch thread each keeps
@@ -113,6 +115,26 @@ def test_forward_at_12_bits_byte_equal(x_eval, method):
     t_logits, t_accs = T.forward(port, x_eval, method, collect=True)
     assert _equal(j_logits, t_logits)
     assert all(_equal(a, b) for a, b in zip(j_accs, t_accs))
+
+
+@pytest.mark.parametrize("method", ["karatsuba_int16", "schoolbook_int16"])
+@pytest.mark.parametrize("nbits", [14, 16])
+def test_forward_with_wide_limbs_byte_equal(x_eval, nbits, method):
+    """nbits = 14 / 16: the weights' limbs pass int8 (Karatsuba's w = 7 at
+    both, schoolbook's w = 8 at 16; on the card the wide kernel's thin
+    route takes them); the accumulators equal the reference's and the int8
+    oracle's."""
+    ref = _reference("mlp", nbits=nbits)
+    port = _carry(ref)
+    w = 7 if method == "karatsuba_int16" else 8
+    qw = port.lq[1].qweight
+    hi, lo = balanced_limbs(qw, w)
+    assert limbs_fit_int8(hi, lo, hi.T, lo.T, karatsuba=w == 7) == (w == 8 and nbits == 14)
+    j_logits, j_accs = J.forward(ref, x_eval, method, collect=True)
+    t_logits, t_accs = T.forward(port, x_eval, method, collect=True)
+    o_logits, o_accs = T.forward(port, x_eval, "int8", collect=True)
+    assert _equal(j_logits, t_logits) and torch.equal(t_logits, o_logits)
+    assert all(_equal(a, b) and torch.equal(b, o) for a, b, o in zip(j_accs, t_accs, o_accs))
 
 
 @pytest.mark.parametrize("model", MODELS)
